@@ -1,0 +1,51 @@
+"""Carry weights and cameras across from numpy.
+
+The JAX package's parameters, decoder and cameras, taken to numpy, become
+the port's tensors here, so both packages can compute the same thing (the
+parity tests do exactly that). Tensors land on ``default_device(device)``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from feature3dgs_tpu_torch import default_device
+from feature3dgs_tpu_torch.core.projection import CameraView
+from feature3dgs_tpu_torch.model.gaussians import GaussianParams, GaussianState
+
+
+def _f32(x, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+
+def gaussians_from_numpy(fields: dict[str, np.ndarray], alive: np.ndarray,
+                         active_sh_degree: int, device=None
+                         ) -> tuple[GaussianParams, GaussianState]:
+    """``fields`` holds the seven GaussianParams arrays by name."""
+    device = default_device(device)
+    missing = set(GaussianParams.FIELDS) - set(fields)
+    if missing:
+        raise KeyError(f"missing Gaussian fields: {sorted(missing)}")
+    params = GaussianParams(**{k: _f32(fields[k], device)
+                               for k in GaussianParams.FIELDS})
+    alive_t = torch.from_numpy(np.asarray(alive, bool).copy()).to(device)
+    if alive_t.shape != (params.capacity,):
+        raise ValueError(f"alive has shape {tuple(alive_t.shape)}, expected "
+                         f"({params.capacity},)")
+    return params, GaussianState.fresh(alive_t, active_sh_degree)
+
+
+def decoder_from_numpy(params: dict[str, np.ndarray], device=None) -> dict:
+    device = default_device(device)
+    return {"w": _f32(params["w"], device), "b": _f32(params["b"], device)}
+
+
+def camera_from_numpy(view, proj, campos, tan_fovx, tan_fovy, width: int,
+                      height: int, device=None) -> CameraView:
+    device = default_device(device)
+    return CameraView(
+        view=_f32(view, device), proj=_f32(proj, device),
+        campos=_f32(campos, device),
+        tan_fovx=_f32(np.float32(tan_fovx), device),
+        tan_fovy=_f32(np.float32(tan_fovy), device),
+        width=int(width), height=int(height))

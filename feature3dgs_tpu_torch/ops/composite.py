@@ -1,0 +1,168 @@
+"""Front-to-back alpha compositing of binned Gaussians: the plain PyTorch
+version of the forward kernel.
+
+Port of the forward of ``feature3dgs_tpu/ops/composite.py``
+(``_composite_fwd_impl``), vectorized over batches of tiles and over
+per-tile lists padded to the longest list in the batch. Lists are never
+truncated, as in the kernel path. This is what CPU tensors run, and what the
+CUDA kernel (ops/csrc/raster_forward.cu) is held against on the card.
+
+Transmittance is kept in the log domain per chunk of K list entries:
+  * T before a splat = T_in * exp(strict prefix sum of log1p(-alpha));
+  * T after = T before * (1 - alpha);
+  * a splat contributes iff it counts (power <= 0, alpha >= 1/255), the
+    pixel is live and T after >= T_EPS; its weight is alpha * T before;
+  * at the chunk's end T_in *= exp(sum of contributing log1p(-alpha));
+  * a counting live splat with T after < T_EPS ends the pixel;
+  * n_contrib is the largest 1-based list position that contributed.
+Under this form the result does not depend on K beyond float rounding, so
+the kernel may use its own chunk length.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from feature3dgs_tpu_torch.ops.binning import TileGrid
+
+ALPHA_MIN = 1.0 / 255.0
+ALPHA_MAX = 0.99
+T_EPS = 1e-4
+
+# elements of one [tiles, K, P] intermediate per tile batch (16 MiB in f32)
+_BATCH_ELEMS = 1 << 22
+
+
+class CompositeOutput(NamedTuple):
+    color: torch.Tensor      # [T, P, 3]
+    feature: torch.Tensor    # [T, P, F]
+    depth: torch.Tensor      # [T, P]
+    final_T: torch.Tensor    # [T, P]
+    n_contrib: torch.Tensor  # [T, P] int32
+
+
+def tile_pixel_coords(grid: TileGrid, n_tiles: int, tile_base: int = 0,
+                      device=None) -> torch.Tensor:
+    """[n_tiles, P, 2] pixel coordinates (no +0.5) of tiles
+    ``tile_base .. tile_base + n_tiles``; the tile row wraps per image
+    (``(t // grid_x) % grid_y``) so stacked same-size grids stay
+    image-local."""
+    t = torch.arange(n_tiles, device=device) + tile_base
+    tx = (t % grid.grid_x) * grid.tile_w
+    ty = ((t // grid.grid_x) % grid.grid_y) * grid.tile_h
+    lane = torch.arange(grid.pixels_per_tile, device=device)
+    px = tx[:, None] + (lane % grid.tile_w)[None, :]
+    py = ty[:, None] + (lane // grid.tile_w)[None, :]
+    return torch.stack([px, py], dim=-1).to(torch.float32)
+
+
+def composite_plain(xy, conic, opacity, rgb, depth, feat, gid_sorted,
+                    tile_starts, tile_counts, grid: TileGrid, *, chunk: int,
+                    tile_base: int = 0, stats: dict | None = None
+                    ) -> CompositeOutput:
+    """Composite every tile of ``tile_starts``/``tile_counts`` (tile t is
+    global tile ``tile_base + t``). Per-Gaussian inputs: xy [N,2],
+    conic [N,3], opacity [N], rgb [N,3], depth [N], feat [N,F].
+
+    ``stats``, when given, gets the work these inputs need: "tested"
+    (list entry, pixel) pairs — the entries a pixel examines while it is
+    live — and "contributing" pairs (nonzero weight) are added to; the list
+    entries some pixel tests are counted in "entries_tested"; and [N] bool
+    masks mark the Gaussians some pixel tests ("tested_gaussians", whose
+    position, conic and opacity must be read) and those that contribute
+    somewhere ("contributing_gaussians", whose colour, depth and features
+    must be read). The chip smoke check computes the kernel's bound from
+    them."""
+    dev = xy.device
+    n_tiles = tile_starts.shape[0]
+    p = grid.pixels_per_tile
+    f_dim = feat.shape[-1]
+    color = torch.zeros((n_tiles, p, 3), dtype=torch.float32, device=dev)
+    feature = torch.zeros((n_tiles, p, f_dim), dtype=torch.float32, device=dev)
+    depth_out = torch.zeros((n_tiles, p), dtype=torch.float32, device=dev)
+    final_t = torch.ones((n_tiles, p), dtype=torch.float32, device=dev)
+    n_contrib = torch.zeros((n_tiles, p), dtype=torch.int32, device=dev)
+    if n_tiles == 0:
+        return CompositeOutput(color, feature, depth_out, final_t, n_contrib)
+
+    counts = tile_counts.long()
+    starts = tile_starts.long()
+    gid = gid_sorted.long()
+    pix = tile_pixel_coords(grid, n_tiles, tile_base, dev)
+    step = max(1, _BATCH_ELEMS // (chunk * p))
+    for t0 in range(0, n_tiles, step):
+        t1 = min(t0 + step, n_tiles)
+        longest = int(counts[t0:t1].max())
+        if longest == 0:
+            continue
+        out = _composite_tiles(
+            xy, conic, opacity, rgb, depth, feat, gid, starts[t0:t1],
+            counts[t0:t1], pix[t0:t1], chunk, longest, stats)
+        (color[t0:t1], feature[t0:t1], depth_out[t0:t1], final_t[t0:t1],
+         n_contrib[t0:t1]) = out
+    return CompositeOutput(color, feature, depth_out, final_t, n_contrib)
+
+
+def _composite_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
+                     counts, pix, chunk: int, longest: int, stats):
+    tb, p = pix.shape[0], pix.shape[1]
+    dev = xy.device
+    px = pix[:, None, :, 0]                              # [tb,1,P]
+    py = pix[:, None, :, 1]
+    trans = torch.ones((tb, p), dtype=torch.float32, device=dev)
+    live = torch.ones((tb, p), dtype=torch.bool, device=dev)
+    acc_c = torch.zeros((tb, p, 3), dtype=torch.float32, device=dev)
+    acc_f = torch.zeros((tb, p, feat.shape[-1]), dtype=torch.float32,
+                        device=dev)
+    acc_d = torch.zeros((tb, p), dtype=torch.float32, device=dev)
+    ncon = torch.zeros((tb, p), dtype=torch.int32, device=dev)
+    lane = torch.arange(chunk, device=dev)
+    for base in range(0, longest, chunk):
+        pos = base + lane                                # [K] 0-based
+        in_list = pos[None, :] < counts[:, None]         # [tb,K]
+        slot = torch.where(in_list, starts[:, None] + pos[None, :],
+                           torch.zeros_like(starts)[:, None])
+        ids = torch.where(in_list, gid[slot], torch.zeros_like(slot))
+        g_xy, g_conic = xy[ids], conic[ids]              # [tb,K,2], [tb,K,3]
+        dx = g_xy[..., 0:1] - px                         # [tb,K,P]
+        dy = g_xy[..., 1:2] - py
+        ca, cb, cc = (g_conic[..., i:i + 1] for i in range(3))
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        alpha_raw = torch.clamp_max(opacity[ids][..., None] * torch.exp(power),
+                                    ALPHA_MAX)
+        ok = (power <= 0.0) & (alpha_raw >= ALPHA_MIN) & in_list[..., None]
+        alpha = torch.where(ok, alpha_raw, torch.zeros_like(alpha_raw))
+        log1m = torch.log1p(-alpha)
+        t_before = trans[:, None, :] * torch.exp(torch.cumsum(log1m, 1) - log1m)
+        t_after = t_before * (1.0 - alpha)
+        okl = ok & live[:, None, :]
+        mask = okl & (t_after >= T_EPS)
+        w = torch.where(mask, alpha * t_before, torch.zeros_like(alpha))
+        if stats is not None:
+            ended = (okl & ~mask).int()
+            tested = (in_list[..., None] & live[:, None, :]
+                      & (torch.cumsum(ended, 1) - ended == 0))
+            stats["tested"] = stats.get("tested", 0) + int(tested.sum())
+            stats["contributing"] = (stats.get("contributing", 0)
+                                     + int(mask.sum()))
+            entry_tested = tested.any(-1)                # [tb,K]
+            stats["entries_tested"] = (stats.get("entries_tested", 0)
+                                       + int(entry_tested.sum()))
+            for key, hit in (("tested_gaussians", entry_tested),
+                             ("contributing_gaussians", mask.any(-1))):
+                seen = stats.setdefault(key, torch.zeros(
+                    xy.shape[0], dtype=torch.bool, device=dev))
+                seen[ids[hit]] = True
+
+        acc_c += torch.einsum("tkp,tkc->tpc", w, rgb[ids])
+        acc_f += torch.einsum("tkp,tkf->tpf", w, feat[ids])
+        acc_d += torch.einsum("tkp,tk->tp", w, depth[ids])
+
+        trans = trans * torch.exp(torch.sum(
+            torch.where(mask, log1m, torch.zeros_like(log1m)), dim=1))
+        live = live & ~torch.any(okl & ~mask, dim=1)
+        pos1 = (pos + 1).to(torch.int32)[None, :, None]
+        ncon = torch.maximum(ncon, torch.amax(
+            torch.where(mask, pos1, torch.zeros_like(pos1)), dim=1))
+    return acc_c, acc_f, acc_d, trans, ncon

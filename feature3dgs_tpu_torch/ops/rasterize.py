@@ -1,0 +1,220 @@
+"""Rasterization API: preprocess -> binning -> compositing -> image assembly.
+
+Port of the forward of ``feature3dgs_tpu/ops/rasterize.py:rasterize``: one
+call renders RGB + N-dim semantic features + depth, returned HWC, with the
+same radii, visibility, ``n_contrib`` and overflow counters. This slice is
+forward-only (serving); the backward kernel comes with training.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from feature3dgs_tpu_torch.core import projection as proj_lib
+from feature3dgs_tpu_torch.ops import binning as binning_lib
+from feature3dgs_tpu_torch.ops.binning import TileGrid
+from feature3dgs_tpu_torch.ops.composite import ALPHA_MIN, composite_plain
+from feature3dgs_tpu_torch.ops.cuda_raster import raster_forward_cuda
+
+BACKENDS = ("auto", "cuda", "plain")
+
+
+def rect_radius(radius: torch.Tensor, opacity: torch.Tensor) -> torch.Tensor:
+    """Opacity-aware binning radius: beyond sqrt(2 ln(op / ALPHA_MIN))
+    sigma every pixel's alpha is below ALPHA_MIN, so such tiles would only
+    hold splats that never count. The radii/visibility outputs keep the
+    3-sigma ``radius``."""
+    op = opacity.detach()
+    return torch.minimum(
+        radius,
+        torch.ceil((radius / 3.0) * torch.sqrt(2.0 * torch.clamp_min(
+            torch.log(torch.clamp_min(op, 1e-12) / ALPHA_MIN), 0.0))) + 1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterConfig:
+    """Rasterizer configuration.
+
+    tile_w/tile_h: pixel tile size (32x16 default; 16x16 is the original
+      CUDA tiling).
+    chunk: list entries per step of the plain compositor; the CUDA kernel
+      uses its own (cuda_raster.KERNEL_CHUNK). Results agree up to float
+      rounding either way.
+    instance_capacity: cap on (Gaussian, tile) instances; Gaussians beyond
+      it are dropped whole, highest index first (0 = 1 << 20). Per-tile
+      lists are never truncated.
+    backend: 'auto' = the CUDA kernel for CUDA tensors, the plain version
+      for CPU tensors; 'cuda' = the kernel (CUDA tensors only); 'plain' =
+      the plain version on any device (tests and the chip smoke check).
+    """
+
+    tile_w: int = 32
+    tile_h: int = 16
+    chunk: int = 128
+    instance_capacity: int = 0
+    backend: str = "auto"
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
+        if self.chunk < 1:
+            raise ValueError(f"chunk must be positive, got {self.chunk}")
+
+    @property
+    def instance_capacity_or_default(self) -> int:
+        return self.instance_capacity or (1 << 20)
+
+    def grid(self, width: int, height: int) -> TileGrid:
+        return TileGrid(width=width, height=height,
+                        tile_w=self.tile_w, tile_h=self.tile_h)
+
+
+class RasterOutput(NamedTuple):
+    color: torch.Tensor      # [H,W,3]
+    feature: torch.Tensor    # [H,W,F]
+    depth: torch.Tensor      # [H,W]
+    alpha: torch.Tensor      # [H,W] = 1 - final_T
+    radii: torch.Tensor      # [N] float screen radii (0 = invisible)
+    visibility: torch.Tensor  # [N] bool (radii > 0)
+    n_contrib: torch.Tensor  # [H,W] int32
+    total_instances: torch.Tensor  # scalar: instances before the cap
+    max_tile_count: torch.Tensor   # scalar int32: longest per-tile list
+    feature_tiles: torch.Tensor    # [T,P,F] tile layout of ``feature``
+
+
+def tiles_to_image(tiles: torch.Tensor, grid: TileGrid) -> torch.Tensor:
+    """[num_tiles, pixels_per_tile, ...] -> [H, W, ...] crop."""
+    ch = tuple(tiles.shape[2:])
+    img = tiles.reshape((grid.grid_y, grid.grid_x, grid.tile_h, grid.tile_w)
+                        + ch)
+    img = img.movedim(2, 1).reshape(
+        (grid.grid_y * grid.tile_h, grid.grid_x * grid.tile_w) + ch)
+    return img[: grid.height, : grid.width]
+
+
+def mark_visible(means3d: torch.Tensor, cam: proj_lib.CameraView) -> torch.Tensor:
+    """[N] bool near-plane mask (view z > 0.2), as the preprocess applies."""
+    _, _, in_frustum = proj_lib.project_points(means3d, cam)
+    return in_frustum
+
+
+def _prep_view(means3d, opacities, cam, grid, *, scales, rotations,
+               cov3d_precomp, shs, sh_degree, colors_precomp, scale_modifier,
+               ndc_offset, active_mask):
+    """Preprocess + tile-rect cull. Returns (pre, xy, rect_min, rect_max,
+    valid)."""
+    pre = proj_lib.preprocess(
+        means3d, opacities, cam,
+        scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
+        shs=shs, sh_degree=sh_degree, colors_precomp=colors_precomp,
+        scale_modifier=scale_modifier)
+    xy = pre.xy
+    if ndc_offset is not None:
+        wh = torch.tensor([cam.width, cam.height], dtype=xy.dtype,
+                          device=xy.device)
+        xy = xy + ndc_offset * wh * 0.5
+    rect_min, rect_max = proj_lib.tile_rect(
+        xy, rect_radius(pre.radius, pre.opacity),
+        grid.grid_x, grid.grid_y, grid.tile_w, grid.tile_h)
+    area = ((rect_max[:, 0] - rect_min[:, 0])
+            * (rect_max[:, 1] - rect_min[:, 1]))
+    valid = pre.valid & (area > 0)
+    if active_mask is not None:
+        valid = valid & active_mask
+    return pre, xy, rect_min, rect_max, valid
+
+
+class CompositeInputs(NamedTuple):
+    """One view, preprocessed and binned: what the compositor takes."""
+
+    pre: proj_lib.Preprocessed
+    valid: torch.Tensor            # [N] bool: binned (in view, alive)
+    bins: binning_lib.BinningResult
+    grid: TileGrid
+    args: tuple                    # positional args of the compositors
+
+
+def composite_inputs(means3d, opacities, semantic_features, cam, *,
+                     scales=None, rotations=None, cov3d_precomp=None, shs=None,
+                     sh_degree=0, colors_precomp=None, scale_modifier=1.0,
+                     ndc_offset=None, active_mask=None,
+                     config: RasterConfig = RasterConfig()) -> CompositeInputs:
+    """Preprocess and bin one view; ``args`` feeds ``raster_forward_cuda``
+    and ``composite_plain`` alike."""
+    grid = config.grid(cam.width, cam.height)
+    pre, xy, rect_min, rect_max, valid = _prep_view(
+        means3d, opacities, cam, grid, scales=scales, rotations=rotations,
+        cov3d_precomp=cov3d_precomp, shs=shs, sh_degree=sh_degree,
+        colors_precomp=colors_precomp, scale_modifier=scale_modifier,
+        ndc_offset=ndc_offset, active_mask=active_mask)
+    bins = binning_lib.bin_gaussians(
+        rect_min, rect_max, pre.depth.detach(), valid, grid,
+        instance_capacity=config.instance_capacity_or_default)
+    args = (xy.detach().contiguous(), pre.conic.detach().contiguous(),
+            pre.opacity.detach().contiguous(), pre.rgb.detach().contiguous(),
+            pre.depth.detach().contiguous(),
+            semantic_features.detach().contiguous(), bins.gid_sorted,
+            bins.tile_starts, bins.tile_counts, grid)
+    return CompositeInputs(pre, valid, bins, grid, args)
+
+
+def rasterize(
+    means3d: torch.Tensor,
+    opacities: torch.Tensor,
+    semantic_features: torch.Tensor,
+    cam: proj_lib.CameraView,
+    *,
+    scales: torch.Tensor | None = None,
+    rotations: torch.Tensor | None = None,
+    cov3d_precomp: torch.Tensor | None = None,
+    shs: torch.Tensor | None = None,
+    sh_degree: int = 0,
+    colors_precomp: torch.Tensor | None = None,
+    bg: torch.Tensor | None = None,
+    scale_modifier=1.0,
+    ndc_offset: torch.Tensor | None = None,
+    active_mask: torch.Tensor | None = None,
+    config: RasterConfig = RasterConfig(),
+) -> RasterOutput:
+    """Render RGB + semantic features + depth of one view (forward only).
+
+    Provide shs(+sh_degree) or colors_precomp, and scales+rotations or
+    cov3d_precomp. ``semantic_features`` is [N, F]; ``bg`` is [3] (black
+    by default)."""
+    ci = composite_inputs(
+        means3d, opacities, semantic_features, cam, scales=scales,
+        rotations=rotations, cov3d_precomp=cov3d_precomp, shs=shs,
+        sh_degree=sh_degree, colors_precomp=colors_precomp,
+        scale_modifier=scale_modifier, ndc_offset=ndc_offset,
+        active_mask=active_mask, config=config)
+    # the one place the compositor is chosen: the kernel for every tensor
+    # that is not on the CPU (raster_forward_cuda raises off CUDA)
+    on_cpu = ci.args[0].device.type == "cpu"
+    if config.backend == "plain" or (config.backend == "auto" and on_cpu):
+        out = composite_plain(*ci.args, chunk=config.chunk)
+    else:
+        out = raster_forward_cuda(*ci.args)
+
+    grid = ci.grid
+    if bg is None:
+        bg = torch.zeros((3,), dtype=out.color.dtype, device=out.color.device)
+    color = out.color + out.final_T[..., None] * bg
+    radii = torch.where(ci.valid, ci.pre.radius,
+                        torch.zeros_like(ci.pre.radius))
+    counts = ci.bins.tile_counts
+    return RasterOutput(
+        color=tiles_to_image(color, grid),
+        feature=tiles_to_image(out.feature, grid),
+        depth=tiles_to_image(out.depth, grid),
+        alpha=1.0 - tiles_to_image(out.final_T, grid),
+        radii=radii,
+        visibility=radii > 0,
+        n_contrib=tiles_to_image(out.n_contrib, grid),
+        total_instances=ci.bins.total,
+        max_tile_count=(counts.max() if counts.numel()
+                        else torch.zeros((), dtype=torch.int32,
+                                         device=counts.device)),
+        feature_tiles=out.feature,
+    )

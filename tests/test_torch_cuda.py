@@ -1,0 +1,113 @@
+"""The forward compositing kernel on the card against its plain version.
+
+Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped elsewhere. On
+the card, run without the JAX-side conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Bars as tests/test_pallas.py: 1e-5 absolute on color, features and
+final_T, 1e-4 on depth, n_contrib exactly.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(dev, f_dim, tile_w, tile_h, boost, width=64, height=48, seed=1):
+    from feature3dgs_tpu_torch.convert import camera_from_numpy
+    from feature3dgs_tpu_torch.core import transforms
+    from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
+                                                     composite_inputs)
+    rng = np.random.RandomState(seed)
+    n = 300
+    q = rng.randn(n, 4)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    g = {"means3d": rng.uniform(-1.5, 1.5, (n, 3)),
+         "scales": np.exp(rng.uniform(-3.5, -1.5, (n, 3))), "rotations": q,
+         "opacities": np.minimum(rng.uniform(0.2, 0.95, n) * boost, 0.999),
+         "shs": rng.randn(n, 9, 3) * 0.3, "feat": rng.randn(n, f_dim)}
+    g = {k: torch.tensor(v.astype(np.float32), device=dev) for k, v in g.items()}
+    view = transforms.world_to_view(np.eye(3), np.array([0.0, 0.0, 4.0]))
+    proj = transforms.projection_matrix(0.01, 100.0, 1.0, 0.8) @ view
+    cam = camera_from_numpy(view, proj, transforms.camera_center_from_view(
+        view).astype(np.float32), math.tan(0.5), math.tan(0.4), width, height,
+        dev)
+    return composite_inputs(
+        g["means3d"], g["opacities"], g["feat"], cam, scales=g["scales"],
+        rotations=g["rotations"], shs=g["shs"], sh_degree=2,
+        config=RasterConfig(tile_w=tile_w, tile_h=tile_h))
+
+
+def _check(got, ref):
+    for k, tol in (("color", 1e-5), ("feature", 1e-5), ("final_T", 1e-5),
+                   ("depth", 1e-4)):
+        err = float((getattr(got, k) - getattr(ref, k)).abs().max()) \
+            if getattr(got, k).numel() else 0.0
+        assert err <= tol, (k, err)
+    assert torch.equal(got.n_contrib, ref.n_contrib)
+
+
+@pytest.mark.parametrize("f_dim,tile_w,tile_h,boost", [
+    (4, 16, 16, 3.0), (128, 16, 16, 3.0), (128, 32, 16, 1.0),
+    (5, 8, 8, 3.0), (0, 16, 16, 1.0), (512, 32, 16, 3.0)])
+def test_kernel_matches_plain(dev, f_dim, tile_w, tile_h, boost):
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.composite import composite_plain
+    ci = _inputs(dev, f_dim, tile_w, tile_h, boost)
+    before = cuda_raster.FORWARD_LAUNCHES
+    got = cuda_raster.raster_forward_cuda(*ci.args)
+    assert cuda_raster.FORWARD_LAUNCHES == before + 1
+    ref = composite_plain(*ci.args, chunk=16)
+    torch.cuda.synchronize()
+    _check(got, ref)
+    again = cuda_raster.raster_forward_cuda(*ci.args)
+    assert torch.equal(again.feature, got.feature)   # deterministic
+
+
+def test_kernel_tile_base_row_wrap(dev):
+    """A slice of tiles offset by tile_base, and a second stacked image
+    (tile_base = T), composite image-local pixels like the plain version."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.composite import composite_plain
+    ci = _inputs(dev, 8, 16, 16, 3.0)
+    for base in (3, ci.grid.num_tiles):
+        got = cuda_raster.raster_forward_cuda(*ci.args, tile_base=base)
+        ref = composite_plain(*ci.args, chunk=16, tile_base=base)
+        _check(got, ref)
+    full = cuda_raster.raster_forward_cuda(*ci.args)
+    wrapped = cuda_raster.raster_forward_cuda(*ci.args,
+                                              tile_base=ci.grid.num_tiles)
+    _check(wrapped, full)
+
+
+def test_kernel_wrapper_rejects_bad_inputs(dev):
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    ci = _inputs(dev, 4, 16, 16, 1.0)
+    args = list(ci.args)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_raster.raster_forward_cuda(*[a.cpu() if torch.is_tensor(a) else a
+                                          for a in args])
+    bad = list(args)
+    bad[3] = args[3].double()
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_raster.raster_forward_cuda(*bad)
+    bad = list(args)
+    bad[5] = torch.randn(args[5].shape[1], args[5].shape[0], device=dev).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_raster.raster_forward_cuda(*bad)
+    bad = list(args)
+    bad[8] = args[8].clone()
+    bad[8][-1] = args[6].numel() + 1      # the last tile's list leaves gid_sorted
+    with pytest.raises(ValueError, match="tile lists out of range"):
+        cuda_raster.raster_forward_cuda(*bad)

@@ -1,0 +1,135 @@
+"""The PyTorch port stands alone: no JAX, flax or feature3dgs_tpu module is
+imported by the port or by chip_smoke.py, and the port does not fall back
+to the CPU when CUDA is missing."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "feature3dgs_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "feature3dgs_tpu")
+
+
+def _port_sources():
+    for d, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == m or name.startswith(m + ".") for m in FORBIDDEN)
+
+
+def test_port_sources_import_nothing_of_jax():
+    """Every import statement, module level or inside a function."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            bad += [f"{path}: {n}" for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import feature3dgs_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        f"bad = [n for n in sys.modules if any(n == m or n.startswith(m + '.') "
+        f"for m in {FORBIDDEN!r})]\n"
+        "print(len([n for n in sys.modules if n.startswith('feature3dgs_tpu_torch')]))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20   # every module was imported
+
+
+def test_default_device_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    from feature3dgs_tpu_torch import default_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        default_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        default_device("cuda")
+    assert default_device("cpu") == torch.device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def _ply(tmp_path) -> str:
+    from feature3dgs_tpu_torch.model import gaussians as G
+    from feature3dgs_tpu_torch.model.ply_io import save_gaussians_ply
+    pts = np.random.RandomState(0).rand(5, 3).astype(np.float32)
+    params, state = G.create_from_pcd(pts, pts, knn_mean_dists=np.ones(5),
+                                      feature_dim=4, device="cpu")
+    path = str(tmp_path / "point_cloud.ply")
+    save_gaussians_ply(path, params, state)
+    return path
+
+
+def _call_entry_point(name, tmp_path, **kw):
+    from feature3dgs_tpu_torch import convert
+    from feature3dgs_tpu_torch.data.cameras import Camera
+    from feature3dgs_tpu_torch.model import gaussians as G
+    from feature3dgs_tpu_torch.model.decoder import init_decoder
+    from feature3dgs_tpu_torch.model.ply_io import load_gaussians_ply
+    from feature3dgs_tpu_torch.train.checkpoints import load_decoder_checkpoint
+    pts = np.zeros((3, 3), np.float32)
+    eye = np.eye(4, dtype=np.float32)
+    if name == "load_gaussians_ply":
+        return load_gaussians_ply(_ply(tmp_path), **kw)
+    if name == "load_decoder_checkpoint":
+        # the device is resolved before the file is opened
+        return load_decoder_checkpoint(str(tmp_path / "missing.ckpt"), **kw)
+    if name == "init_decoder":
+        return init_decoder(4, 16, **kw)
+    if name == "create_from_pcd":
+        return G.create_from_pcd(pts, pts, knn_mean_dists=np.ones(3), **kw)
+    if name == "Camera.to_view":
+        cam = Camera(uid=0, colmap_id=0, R=np.eye(3), T=np.zeros(3),
+                     fovx=1.0, fovy=0.8, image=None, image_name="x",
+                     semantic_feature=None, width=8, height=6)
+        return cam.to_view(**kw)
+    if name == "gaussians_from_numpy":
+        fields = {k: np.zeros((3, 1)) for k in G.GaussianParams.FIELDS}
+        return convert.gaussians_from_numpy(fields, np.ones(3, bool), 0, **kw)
+    if name == "decoder_from_numpy":
+        return convert.decoder_from_numpy({"w": eye, "b": eye[0]}, **kw)
+    assert name == "camera_from_numpy"
+    return convert.camera_from_numpy(eye, eye, eye[0, :3], 0.5, 0.4, 8, 6,
+                                     **kw)
+
+
+ENTRY_POINTS = ["load_gaussians_ply", "load_decoder_checkpoint",
+                "init_decoder", "create_from_pcd", "Camera.to_view",
+                "gaussians_from_numpy", "decoder_from_numpy",
+                "camera_from_numpy"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
+    """Without a device argument every entry point that makes tensors asks
+    for the CUDA card, so without CUDA it raises instead of quietly
+    serving from the CPU; device='cpu' is honoured."""
+    if name != "load_decoder_checkpoint":
+        _call_entry_point(name, tmp_path, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _call_entry_point(name, tmp_path)

@@ -2,10 +2,11 @@
 
 The PyTorch port of ``feature3dgs_tpu``: the same Gaussian parameters,
 activations, PLY schema, rasterizer contract (RGB, N-dim features and depth
-in one pass, plus radii, visibility, ``n_contrib`` and the overflow
-counters) and render CLI, with the compositing kernel written by hand in
-CUDA C++ for Hopper (``ops/csrc/raster_forward.cu``). This slice serves
-renders; training comes next.
+in one differentiable pass, plus radii, visibility, ``n_contrib`` and the
+overflow counters), losses, Adam, training step and render CLI, with the
+compositing kernels written by hand in CUDA C++ for Hopper: the forward
+``ops/csrc/raster_forward.cu`` and the backward
+``ops/csrc/raster_backward.cu``, sharing ``ops/csrc/raster_common.cuh``.
 
 Precision: everything is float32. Importing the package sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -14,17 +15,20 @@ convolutions on the card run in full float32 rather than TF32.
 
 Device: entry points run on ``default_device()``, which is the CUDA card and
 raises when there is none, unless the caller asks for ``"cpu"`` (as the
-tests do). On CPU tensors every kernel wrapper runs its plain PyTorch
-version.
+tests do). For CPU tensors ``ops.rasterize`` runs each kernel's plain
+PyTorch version; the kernel wrappers themselves raise on anything but CUDA
+tensors.
 
 Layout (module names follow ``feature3dgs_tpu`` where that helps a reader
 find the counterpart):
   core/      camera transforms, SH, EWA projection
-  ops/       binning, plain compositor, CUDA kernel wrapper, rasterize
-  model/     Gaussian parameters, decoder, PLY I/O
+  ops/       binning, plain compositor forward and backward, CUDA kernel
+             wrappers, segment-sum, rasterize (autograd Function)
+  model/     Gaussian parameters, decoder, PLY I/O, Adam, densification
+             statistics
   data/      PLY codec, cameras, COLMAP / Blender loaders
   render/    renderer binding, render modes
-  train/     the feature resize used by rendering; decoder checkpoints
+  train/     losses and the feature resize; train_step; decoder checkpoints
   cli/       render CLI (python -m feature3dgs_tpu_torch.cli.render)
 """
 from __future__ import annotations
@@ -33,6 +37,11 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# PyTorch's CPU build can return unary float math (exp, log, sqrt) off by
+# ~1e-4 relative in part of the first such call that runs on several
+# threads; one tiny single-threaded call first avoids it
+# (tests/test_torch_isolation.py::test_first_threaded_cpu_math_is_exact).
+torch.exp(torch.zeros(1))
 
 __version__ = "0.1.0"
 

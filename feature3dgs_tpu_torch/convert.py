@@ -1,8 +1,9 @@
-"""Carry weights and cameras across from numpy.
+"""Carry weights, training state and cameras across from numpy.
 
-The JAX package's parameters, decoder and cameras, taken to numpy, become
-the port's tensors here, so both packages can compute the same thing (the
-parity tests do exactly that). Tensors land on ``default_device(device)``.
+The JAX package's parameters, decoder, training state and cameras, taken
+to numpy, become the port's tensors here, so both packages can compute the
+same thing (the parity tests do exactly that). Tensors land on
+``default_device(device)``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import torch
 from feature3dgs_tpu_torch import default_device
 from feature3dgs_tpu_torch.core.projection import CameraView
 from feature3dgs_tpu_torch.model.gaussians import GaussianParams, GaussianState
+from feature3dgs_tpu_torch.model.optim import AdamState, TensorAdamState
+from feature3dgs_tpu_torch.train.trainer import TrainState
 
 
 def _f32(x, device: torch.device) -> torch.Tensor:
@@ -33,6 +36,42 @@ def gaussians_from_numpy(fields: dict[str, np.ndarray], alive: np.ndarray,
         raise ValueError(f"alive has shape {tuple(alive_t.shape)}, expected "
                          f"({params.capacity},)")
     return params, GaussianState.fresh(alive_t, active_sh_degree)
+
+
+def train_state_from_numpy(state: dict, device=None) -> TrainState:
+    """A TrainState from numpy: ``state["params"]`` holds the seven
+    GaussianParams arrays; ``state["gstate"]`` alive, max_radii2d,
+    xyz_gradient_accum, denom, active_sh_degree and spatial_lr_scale;
+    ``state["adam"]`` {"mu": fields, "nu": fields, "step"}; and, for the
+    speed-up decoder, ``state["decoder"]`` {"w", "b"} and
+    ``state["decoder_adam"]`` {"mu", "nu", "step"} (absent or None
+    otherwise)."""
+    device = default_device(device)
+    gs = state["gstate"]
+    params, gstate = gaussians_from_numpy(
+        state["params"], gs["alive"], int(gs["active_sh_degree"]), device)
+    for k in ("max_radii2d", "xyz_gradient_accum", "denom"):
+        setattr(gstate, k, _f32(gs[k], device))
+    gstate.spatial_lr_scale = float(gs["spatial_lr_scale"])
+
+    def step(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=device)
+
+    def fields(d):
+        return GaussianParams(**{k: _f32(d[k], device)
+                                 for k in GaussianParams.FIELDS})
+
+    adam = AdamState(fields(state["adam"]["mu"]), fields(state["adam"]["nu"]),
+                     step(state["adam"]["step"]))
+    decoder = dec_adam = None
+    if state.get("decoder") is not None:
+        decoder = decoder_from_numpy(state["decoder"], device)
+        da = state["decoder_adam"]
+        dec_adam = TensorAdamState(decoder_from_numpy(da["mu"], device),
+                                   decoder_from_numpy(da["nu"], device),
+                                   step(da["step"]))
+    return TrainState(params, gstate, adam, decoder, dec_adam)
 
 
 def decoder_from_numpy(params: dict[str, np.ndarray], device=None) -> dict:

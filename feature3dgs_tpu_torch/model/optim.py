@@ -1,0 +1,170 @@
+"""Per-group Adam and the learning-rate schedules, in PyTorch.
+
+Port of ``feature3dgs_tpu/model/optim.py`` (the original
+scene/gaussian_model.py:163-190 and utils/general_utils.py:29-62): one Adam
+group per GaussianParams field with its own learning rate, eps 1e-15, the
+log-linear xyz decay with an optional sin delay ramp, one shared step
+counter, and a plain Adam (eps 1e-8) for the speed-up decoder. The update
+is torch.optim.Adam's: p -= lr * mhat / (sqrt(nhat) + eps).
+
+Unlike the JAX package, whose pytrees are immutable, the updates here write
+parameters, moments and the step counter in place (no second copy of the
+optimizer state), under ``torch.no_grad``. The ``keep`` gate of
+``adam_update`` (the trainer's non-finite-loss guard) is a device-side
+select, so it costs no host sync. These are plain elementwise ops, not
+kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from feature3dgs_tpu_torch import default_device
+from feature3dgs_tpu_torch.model.gaussians import GaussianParams
+
+
+@dataclasses.dataclass
+class AdamState:
+    mu: GaussianParams
+    nu: GaussianParams
+    step: torch.Tensor  # scalar int32
+
+
+@dataclasses.dataclass
+class TensorAdamState:
+    mu: dict
+    nu: dict
+    step: torch.Tensor  # scalar int32
+
+
+@dataclasses.dataclass(frozen=True)
+class LRConfig:
+    """Learning rates (the original arguments/__init__.py:74-95)."""
+
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_steps: int = 0
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    semantic_feature_lr: float = 0.001
+
+
+def expon_lr(step: int, lr_init: float, lr_final: float,
+             lr_delay_steps: int = 0, lr_delay_mult: float = 1.0,
+             max_steps: int = 1_000_000) -> float:
+    """Log-linear decay with an optional sin delay ramp, in float32 as the
+    JAX package computes it; ``step`` is a host integer."""
+    f32 = np.float32
+    step = f32(step)
+    if lr_delay_steps > 0:
+        delay = f32(lr_delay_mult) + f32(1 - lr_delay_mult) * np.sin(
+            f32(0.5 * np.pi) * np.clip(step / f32(lr_delay_steps), f32(0),
+                                       f32(1)))
+    else:
+        delay = f32(1.0)
+    t = np.clip(step / f32(max_steps), f32(0), f32(1))
+    log_lerp = np.exp(np.log(f32(lr_init)) * (f32(1) - t)
+                      + np.log(f32(lr_final)) * t)
+    return float(f32(delay * log_lerp))
+
+
+def xyz_lr(cfg: LRConfig, step: int, spatial_lr_scale: float) -> float:
+    return expon_lr(step, cfg.position_lr_init * spatial_lr_scale,
+                    cfg.position_lr_final * spatial_lr_scale,
+                    lr_delay_steps=cfg.position_lr_delay_steps,
+                    lr_delay_mult=cfg.position_lr_delay_mult,
+                    max_steps=cfg.position_lr_max_steps)
+
+
+def group_lrs(cfg: LRConfig, step: int, spatial_lr_scale: float) -> dict:
+    """Per-field learning rates (floats) at one iteration."""
+    return {"xyz": xyz_lr(cfg, step, spatial_lr_scale),
+            "features_dc": cfg.feature_lr,
+            "features_rest": cfg.feature_lr / 20.0,
+            "scaling": cfg.scaling_lr,
+            "rotation": cfg.rotation_lr,
+            "opacity": cfg.opacity_lr,
+            "semantic_feature": cfg.semantic_feature_lr}
+
+
+def _zeros_on(tensors: dict, device) -> dict:
+    device = default_device(device)
+    for name, x in tensors.items():
+        # "cuda" names the current card, which a tensor reports as cuda:N
+        if x.device.type != device.type or device.index not in (
+                None, x.device.index):
+            raise ValueError(f"{name} is on {x.device}, expected {device}")
+    return {k: torch.zeros_like(x) for k, x in tensors.items()}
+
+
+def _fields(p: GaussianParams) -> dict:
+    return {k: getattr(p, k) for k in GaussianParams.FIELDS}
+
+
+def init_adam(params: GaussianParams, device=None) -> AdamState:
+    """Zero moments and step for ``params``, which must lie on
+    ``default_device(device)``."""
+    mu = _zeros_on(_fields(params), device)
+    nu = {k: torch.zeros_like(x) for k, x in mu.items()}
+    step = torch.zeros((), dtype=torch.int32, device=params.xyz.device)
+    return AdamState(GaussianParams(**mu), GaussianParams(**nu), step)
+
+
+def init_tensor_adam(params: dict, device=None) -> TensorAdamState:
+    mu = _zeros_on(params, device)
+    nu = {k: torch.zeros_like(x) for k, x in mu.items()}
+    step = torch.zeros((), dtype=torch.int32, device=next(iter(mu.values())).device)
+    return TensorAdamState(mu, nu, step)
+
+
+def _adam_(params: dict, grads: dict, mu: dict, nu: dict, step: torch.Tensor,
+           lrs, b1: float, b2: float, eps: float, keep):
+    """One bias-corrected Adam step over every tensor, in place."""
+    new_step = step + 1
+    t = new_step.to(torch.float32)
+    c1 = 1.0 - torch.pow(b1, t)
+    c2 = 1.0 - torch.pow(b2, t)
+    for k, p in params.items():
+        g = grads[k]
+        m = b1 * mu[k] + (1 - b1) * g
+        n = b2 * nu[k] + (1 - b2) * g * g
+        new_p = p - lrs[k] * (m / c1) / (torch.sqrt(n / c2) + eps)
+        if keep is not None:
+            m = torch.where(keep, m, mu[k])
+            n = torch.where(keep, n, nu[k])
+            new_p = torch.where(keep, new_p, p)
+        mu[k].copy_(m)
+        nu[k].copy_(n)
+        p.copy_(new_p)
+    step.copy_(new_step if keep is None
+               else torch.where(keep, new_step, step))
+
+
+@torch.no_grad()
+def adam_update(params: GaussianParams, grads: GaussianParams,
+                state: AdamState, lrs: dict, *, b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-15,
+                keep: torch.Tensor | None = None):
+    """One Adam step of every field, in place; returns (params, state).
+    ``keep`` (scalar bool tensor): where False, parameters, moments and the
+    step counter stay as they were, with no host sync."""
+    _adam_(_fields(params), _fields(grads), _fields(state.mu),
+           _fields(state.nu), state.step, lrs, b1, b2, eps, keep)
+    return params, state
+
+
+@torch.no_grad()
+def tensor_adam_update(params: dict, grads: dict, state: TensorAdamState,
+                       lr: float, b1: float = 0.9, b2: float = 0.999,
+                       eps: float = 1e-8, keep: torch.Tensor | None = None):
+    """Plain Adam over a dict of tensors (the decoder), in place; ``keep``
+    as in ``adam_update``. Returns (params, state)."""
+    _adam_(params, grads, state.mu, state.nu, state.step,
+           dict.fromkeys(params, lr), b1, b2, eps, keep)
+    return params, state

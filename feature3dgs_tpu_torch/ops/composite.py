@@ -1,11 +1,12 @@
-"""Front-to-back alpha compositing of binned Gaussians: the plain PyTorch
-version of the forward kernel.
+"""Front-to-back alpha compositing of binned Gaussians and its gradient:
+the plain PyTorch versions of the forward and backward kernels.
 
-Port of the forward of ``feature3dgs_tpu/ops/composite.py``
-(``_composite_fwd_impl``), vectorized over batches of tiles and over
-per-tile lists padded to the longest list in the batch. Lists are never
-truncated, as in the kernel path. This is what CPU tensors run, and what the
-CUDA kernel (ops/csrc/raster_forward.cu) is held against on the card.
+Port of ``feature3dgs_tpu/ops/composite.py`` (``_composite_fwd_impl`` and
+``_composite_bwd``), vectorized over batches of tiles and over per-tile
+lists padded to the longest list in the batch. Lists are never truncated,
+as in the kernel path. This is what CPU tensors run, and what the CUDA
+kernels (ops/csrc/raster_forward.cu, raster_backward.cu) are held against
+on the card.
 
 Transmittance is kept in the log domain per chunk of K list entries:
   * T before a splat = T_in * exp(strict prefix sum of log1p(-alpha));
@@ -17,6 +18,10 @@ Transmittance is kept in the log domain per chunk of K list entries:
   * n_contrib is the largest 1-based list position that contributed.
 Under this form the result does not depend on K beyond float rounding, so
 the kernel may use its own chunk length.
+
+The backward (``composite_plain_backward``) walks each tile back to front
+from its deepest contributor and returns one gradient row per list entry,
+as the backward kernel does; ``ops.segment`` sums the rows per Gaussian.
 """
 from __future__ import annotations
 
@@ -40,6 +45,13 @@ class CompositeOutput(NamedTuple):
     depth: torch.Tensor      # [T, P]
     final_T: torch.Tensor    # [T, P]
     n_contrib: torch.Tensor  # [T, P] int32
+
+
+class BackwardRows(NamedTuple):
+    """Gradient rows of the compositing, one per entry of gid_sorted."""
+
+    geom: torch.Tensor     # [L, 10]: x, y, conic a, b, c, opacity, r, g, b, depth
+    feature: torch.Tensor  # [L, F]
 
 
 def tile_pixel_coords(grid: TileGrid, n_tiles: int, tile_base: int = 0,
@@ -166,3 +178,129 @@ def _composite_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
         ncon = torch.maximum(ncon, torch.amax(
             torch.where(mask, pos1, torch.zeros_like(pos1)), dim=1))
     return acc_c, acc_f, acc_d, trans, ncon
+
+
+def composite_plain_backward(xy, conic, opacity, rgb, depth, feat, gid_sorted,
+                             tile_starts, tile_counts, grid: TileGrid,
+                             g_color, g_feat, g_depth, g_final_t, final_t,
+                             n_contrib, *, chunk: int,
+                             feature_alpha_grad: bool = False,
+                             stats: dict | None = None) -> BackwardRows:
+    """Gradient rows of ``composite_plain`` (one per list entry), given the
+    forward's inputs, the pixel cotangents g_color [T,P,3], g_feat [T,P,F],
+    g_depth [T,P], g_final_t [T,P] and the forward's final_t and n_contrib.
+
+    The quirks of ``feature3dgs_tpu/ops/composite.py:_composite_bwd`` hold:
+    features couple into alpha only under ``feature_alpha_grad``; the 0.99
+    alpha clamp is not gated; the conic gets the true d/db; the final_T
+    cotangent enters the suffix as g_final_t * final_T; depth couples into
+    alpha like a colour channel. Rows the walk never reaches (past each
+    tile's deepest contributor) are zero.
+
+    ``stats``, when given, gets the work these inputs need: "walked"
+    (entry, pixel) pairs of the entries before each tile's deepest
+    contributor, "contributing" pairs, "entries_walked", and [N] bool masks
+    "walked_gaussians" and "contributing_gaussians"."""
+    dev = xy.device
+    n_tiles = tile_starts.shape[0]
+    p = grid.pixels_per_tile
+    f_dim = feat.shape[-1]
+    n_inst = gid_sorted.shape[0]
+    geom = torch.zeros((n_inst, 10), dtype=torch.float32, device=dev)
+    feature = torch.zeros((n_inst, f_dim), dtype=torch.float32, device=dev)
+    if n_tiles == 0:
+        return BackwardRows(geom, feature)
+    counts = tile_counts.long()
+    starts = tile_starts.long()
+    gid = gid_sorted.long()
+    # the walk stops at each tile's deepest contributor
+    depth_walk = torch.minimum(n_contrib.long().amax(1), counts)
+    pix = tile_pixel_coords(grid, n_tiles, device=dev)
+    step = max(1, _BATCH_ELEMS // (chunk * p))
+    for t0 in range(0, n_tiles, step):
+        t1 = min(t0 + step, n_tiles)
+        longest = int(depth_walk[t0:t1].max())
+        if longest == 0:
+            continue
+        _backward_tiles(
+            xy, conic, opacity, rgb, depth, feat, gid, starts[t0:t1],
+            depth_walk[t0:t1], pix[t0:t1], g_color[t0:t1], g_feat[t0:t1],
+            g_depth[t0:t1], g_final_t[t0:t1], final_t[t0:t1],
+            n_contrib[t0:t1].long(), chunk, longest, feature_alpha_grad,
+            geom, feature, stats)
+    return BackwardRows(geom, feature)
+
+
+def _backward_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
+                    walk, pix, g_color, g_feat, g_depth, g_final_t, final_t,
+                    ncon, chunk: int, longest: int, fag: bool, geom, feature,
+                    stats):
+    dev = xy.device
+    px = pix[:, None, :, 0]                              # [tb,1,P]
+    py = pix[:, None, :, 1]
+    g_aug = torch.cat([g_color, g_depth[..., None]], -1)  # [tb,P,4(+F)]
+    if fag:
+        g_aug = torch.cat([g_aug, g_feat], -1)
+    t_end = final_t.clone()
+    # S = g_finalT * final_T + sum over later entries of w * u
+    suffix = g_final_t * final_t
+    lane = torch.arange(chunk, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for base in reversed(range(0, longest, chunk)):
+        pos = base + lane                                # [K] 0-based
+        walked = pos[None, :] < walk[:, None]            # [tb,K]
+        slot = torch.where(walked, starts[:, None] + pos[None, :],
+                           torch.zeros_like(starts)[:, None])
+        ids = torch.where(walked, gid[slot], torch.zeros_like(slot))
+        g_xy, g_conic = xy[ids], conic[ids]
+        g_op = opacity[ids][..., None]                   # [tb,K,1]
+        dx = g_xy[..., 0:1] - px                         # [tb,K,P]
+        dy = g_xy[..., 1:2] - py
+        ca, cb, cc = (g_conic[..., i:i + 1] for i in range(3))
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        gexp = torch.exp(power)
+        alpha_raw = torch.clamp_max(g_op * gexp, ALPHA_MAX)
+        mask = ((power <= 0.0) & (alpha_raw >= ALPHA_MIN) & walked[..., None]
+                & (pos[None, :, None] < ncon[:, None, :]))
+        alpha = torch.where(mask, alpha_raw, zero)
+        log1m = torch.log1p(-alpha)
+        revcum = torch.flip(torch.cumsum(torch.flip(log1m, [1]), 1), [1])
+        t_before = t_end[:, None, :] * torch.exp(-revcum)
+        w = torch.where(mask, alpha * t_before, zero)
+        c_aug = torch.cat([rgb[ids], depth[ids][..., None]], -1)
+        if fag:
+            c_aug = torch.cat([c_aug, feat[ids]], -1)
+        u = torch.einsum("tkc,tpc->tkp", c_aug, g_aug)
+        m = w * u
+        s_within = torch.flip(torch.cumsum(torch.flip(m, [1]), 1), [1]) - m
+        dl_da = torch.where(
+            mask, t_before * u - (s_within + suffix[:, None, :]) / (1.0 - alpha),
+            zero)
+        d_op = torch.where(mask, gexp * dl_da, zero)
+        d_pow = g_op * d_op
+        rows = torch.stack([
+            torch.sum(-(ca * dx + cb * dy) * d_pow, 2),
+            torch.sum(-(cc * dy + cb * dx) * d_pow, 2),
+            torch.sum(-0.5 * dx * dx * d_pow, 2),
+            torch.sum(-dx * dy * d_pow, 2),
+            torch.sum(-0.5 * dy * dy * d_pow, 2),
+            torch.sum(d_op, 2)], -1)                     # [tb,K,6]
+        rows = torch.cat([rows, torch.einsum("tkp,tpc->tkc", w, g_color),
+                          torch.einsum("tkp,tp->tk", w, g_depth)[..., None]],
+                         -1)
+        geom[slot[walked]] = rows[walked]
+        feature[slot[walked]] = torch.einsum("tkp,tpf->tkf", w, g_feat)[walked]
+        if stats is not None:
+            stats["walked"] = (stats.get("walked", 0)
+                               + int(walked.sum()) * pix.shape[1])
+            stats["contributing"] = (stats.get("contributing", 0)
+                                     + int(mask.sum()))
+            stats["entries_walked"] = (stats.get("entries_walked", 0)
+                                       + int(walked.sum()))
+            for key, hit in (("walked_gaussians", walked),
+                             ("contributing_gaussians", mask.any(-1))):
+                seen = stats.setdefault(key, torch.zeros(
+                    xy.shape[0], dtype=torch.bool, device=dev))
+                seen[ids[hit]] = True
+        suffix = suffix + torch.sum(m, 1)
+        t_end = t_end * torch.exp(-torch.sum(log1m, 1))

@@ -22,9 +22,11 @@
 //     with T after < 1e-4 ends the pixel; n_contrib is the largest 1-based
 //     list position that contributed;
 //   * the whole tile stops once no pixel is live (block-wide vote).
-// The per-splat arithmetic uses __fmul_rn/__fadd_rn so the compiler cannot
-// contract it into FMAs: the alpha and T thresholds then see the same
-// rounding as the plain version's separate multiplies and adds.
+// The per-splat power/alpha arithmetic is raster_common.cuh:splat_alpha,
+// shared with the backward kernel, which must re-decide bit for bit which
+// splats counted. It and the T update use __fmul_rn/__fadd_rn so the
+// compiler cannot contract them into FMAs: the alpha and T thresholds then
+// see the same rounding as the plain version's separate multiplies and adds.
 //
 // What bounds it on the card: CUDA-core f32 work. Each (splat, pixel) pair
 // costs ~25 operations for alpha and T plus 2F for the feature sum, against
@@ -48,16 +50,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "raster_common.cuh"
+
 namespace {
 
+using f3dgs::pad4;
+using f3dgs::T_EPS;
+
 constexpr int CHUNK = 32;
-constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
-constexpr float ALPHA_MAX = (float)0.99;
-constexpr float T_EPS = (float)1e-4;
 constexpr int N_GEOM = 10;  // x, y, conic a/b/c, opacity, r, g, b, depth
 constexpr int MAX_THREADS = 1024;
-
-__host__ __device__ inline int pad4(int x) { return (x + 3) & ~3; }
 
 // Shared memory: int gid[CHUNK], idx[CHUNK], flag[CHUNK], nact (+3 pad);
 // float geom[N_GEOM][CHUNK]; float w[CHUNK][P]; float feat[CHUNK][pad4(F)].
@@ -196,35 +198,27 @@ raster_forward_kernel(const float* __restrict__ xy,
     bool ended = false;
     for (int k = 0; k < kn; ++k) {
       float w = 0.f;
-      if (live) {
-        const float dx = __fsub_rn(s_geom[0 * CHUNK + k], px);
-        const float dy = __fsub_rn(s_geom[1 * CHUNK + k], py);
-        const float ca = s_geom[2 * CHUNK + k];
-        const float cb = s_geom[3 * CHUNK + k];
-        const float cc = s_geom[4 * CHUNK + k];
-        const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
-                                     __fmul_rn(__fmul_rn(cc, dy), dy));
-        const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                      __fmul_rn(__fmul_rn(cb, dx), dy));
-        const float alpha =
-            fminf(__fmul_rn(s_geom[5 * CHUNK + k], expf(power)), ALPHA_MAX);
-        if (power <= 0.f && alpha >= ALPHA_MIN) {
-          const float l = log1pf(-alpha);
-          const float t_before = __fmul_rn(trans, expf(cum));
-          const float t_after = __fmul_rn(t_before, __fsub_rn(1.f, alpha));
-          cum = __fadd_rn(cum, l);
-          if (t_after >= T_EPS) {
-            w = __fmul_rn(alpha, t_before);
-            cum_contrib = __fadd_rn(cum_contrib, l);
-            ncon = base + k + 1;
-            acc_r = fmaf(w, s_geom[6 * CHUNK + k], acc_r);
-            acc_g = fmaf(w, s_geom[7 * CHUNK + k], acc_g);
-            acc_b = fmaf(w, s_geom[8 * CHUNK + k], acc_b);
-            acc_d = fmaf(w, s_geom[9 * CHUNK + k], acc_d);
-            s_flag[k] = 1;
-          } else {
-            ended = true;
-          }
+      float dx, dy, gexp, alpha;
+      if (live && f3dgs::splat_alpha(
+                      s_geom[0 * CHUNK + k], s_geom[1 * CHUNK + k],
+                      s_geom[2 * CHUNK + k], s_geom[3 * CHUNK + k],
+                      s_geom[4 * CHUNK + k], s_geom[5 * CHUNK + k], px, py,
+                      dx, dy, gexp, alpha)) {
+        const float l = log1pf(-alpha);
+        const float t_before = __fmul_rn(trans, expf(cum));
+        const float t_after = __fmul_rn(t_before, __fsub_rn(1.f, alpha));
+        cum = __fadd_rn(cum, l);
+        if (t_after >= T_EPS) {
+          w = __fmul_rn(alpha, t_before);
+          cum_contrib = __fadd_rn(cum_contrib, l);
+          ncon = base + k + 1;
+          acc_r = fmaf(w, s_geom[6 * CHUNK + k], acc_r);
+          acc_g = fmaf(w, s_geom[7 * CHUNK + k], acc_g);
+          acc_b = fmaf(w, s_geom[8 * CHUNK + k], acc_b);
+          acc_d = fmaf(w, s_geom[9 * CHUNK + k], acc_d);
+          s_flag[k] = 1;
+        } else {
+          ended = true;
         }
       }
       s_w[(size_t)k * p_pix + lane] = w;

@@ -1,15 +1,19 @@
-"""Forward compositing on the card: the wrapper of ops/csrc/raster_forward.cu.
+"""Compositing on the card: the wrappers of ops/csrc/raster_forward.cu and
+ops/csrc/raster_backward.cu.
 
-The kernel replaces ``feature3dgs_tpu/ops/pallas_raster.py:_fwd_kernel``.
-It is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface at first use, from the sources in this package, into
-``build/kernels/`` at the repository root (cached by source hash), and
-called through ``ctypes`` on PyTorch's current stream.
+The kernels replace ``feature3dgs_tpu/ops/pallas_raster.py:_fwd_kernel``
+and ``_bwd_kernel``. Each source is compiled with ``nvcc`` for ``sm_90a``
+into its own shared library with a plain C interface at first use (one
+``nvcc`` per source, run in parallel), into ``build/kernels/`` at the
+repository root, cached by the hash of the source, the headers it may
+include and the flags, and called through ``ctypes`` on PyTorch's current
+stream.
 
-``raster_forward_cuda`` launches the kernel on CUDA tensors and raises on
-anything else; ``ops.rasterize`` runs the plain version
-(``ops.composite.composite_plain``) for CPU tensors. ``FORWARD_LAUNCHES``
-counts kernel launches.
+``raster_forward_cuda`` and ``raster_backward_cuda`` launch their kernels on
+CUDA tensors and raise on anything else; ``ops.rasterize`` runs the plain
+versions (``ops.composite.composite_plain`` and
+``composite_plain_backward``) for CPU tensors. ``FORWARD_LAUNCHES`` and
+``BACKWARD_LAUNCHES`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -24,21 +28,24 @@ from pathlib import Path
 import torch
 
 from feature3dgs_tpu_torch.ops.binning import TileGrid
-from feature3dgs_tpu_torch.ops.composite import CompositeOutput
+from feature3dgs_tpu_torch.ops.composite import BackwardRows, CompositeOutput
 
-# list entries the kernel stages per step (CHUNK in raster_forward.cu)
+# list entries the kernels stage per step (CHUNK in the .cu sources)
 KERNEL_CHUNK = 32
-# launches of the forward kernel since import (or since a caller reset it)
+# launches of each kernel since import (or since a caller reset them)
 FORWARD_LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "raster_forward.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = {"raster_forward": _CSRC / "raster_forward.cu",
+            "raster_backward": _CSRC / "raster_backward.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the largest dynamic shared memory a Hopper block may use
 MAX_SMEM_BYTES = 232448
 
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
 BUILD_LOG: str = ""
 
@@ -53,48 +60,72 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path. The ptxas report (registers, spills) lands in
-    ``BUILD_LOG`` and beside the library."""
+def _library_path(name: str) -> Path:
+    """Where the library of source ``name`` lands: its tag hashes the
+    source, every header of csrc/ and the flags, so editing a shared header
+    rebuilds every kernel."""
+    h = hashlib.sha256(_SOURCES[name].read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile every kernel library not built yet, one ``nvcc`` per source,
+    all started together; returns {name: library path}. The ptxas reports
+    (registers, spills) land in ``BUILD_LOG`` and beside each library."""
     global BUILD_LOG
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"raster_forward_{tag}.so"
-    log_path = lib_path.with_suffix(".log")
-    if lib_path.exists():
-        BUILD_LOG = log_path.read_text() if log_path.exists() else ""
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{BUILD_LOG}")
-    log_path.write_text(BUILD_LOG)
-    os.replace(tmp, lib_path)
-    return lib_path
+    paths = {name: _library_path(name) for name in _SOURCES}
+    todo = [name for name, lib_path in paths.items() if not lib_path.exists()]
+    procs = {}
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name in todo:
+        tmp = paths[name].with_name(f"{paths[name].stem}.{os.getpid()}.tmp.so")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {_SOURCES[name]}:\n{log}")
+            continue
+        paths[name].with_suffix(".log").write_text(log)
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    BUILD_LOG = "".join(
+        f"[{name}]\n" + (p.with_suffix(".log").read_text()
+                         if p.with_suffix(".log").exists() else "")
+        for name, p in paths.items())
+    return paths
 
 
-def _library():
-    global _lib
+def _library(name: str):
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if not _libs:
+            paths = build()
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.f3dgs_raster_forward.argtypes = [p] * 9 + [i] * 7 + [p] * 6
-            lib.f3dgs_raster_forward.restype = i
-            lib.f3dgs_raster_forward_chunk.argtypes = []
-            lib.f3dgs_raster_forward_chunk.restype = i
-            lib.f3dgs_raster_forward_smem_bytes.argtypes = [i, i]
-            lib.f3dgs_raster_forward_smem_bytes.restype = ctypes.c_size_t
-            lib.f3dgs_error_string.argtypes = [i]
-            lib.f3dgs_error_string.restype = ctypes.c_char_p
-            if lib.f3dgs_raster_forward_chunk() != KERNEL_CHUNK:
-                raise RuntimeError("KERNEL_CHUNK disagrees with the kernel")
-            _lib = lib
-    return _lib
+            for lib_name, sig in (("raster_forward", [p] * 9 + [i] * 7 + [p] * 6),
+                                  ("raster_backward",
+                                   [p] * 15 + [i] * 6 + [p] * 3)):
+                lib = ctypes.CDLL(str(paths[lib_name]))
+                fn = getattr(lib, f"f3dgs_{lib_name}")
+                fn.argtypes, fn.restype = sig, i
+                chunk = getattr(lib, f"f3dgs_{lib_name}_chunk")
+                chunk.argtypes, chunk.restype = [], i
+                smem = getattr(lib, f"f3dgs_{lib_name}_smem_bytes")
+                smem.argtypes, smem.restype = [i, i], ctypes.c_size_t
+                lib.f3dgs_error_string.argtypes = [i]
+                lib.f3dgs_error_string.restype = ctypes.c_char_p
+                if chunk() != KERNEL_CHUNK:
+                    raise RuntimeError(
+                        f"KERNEL_CHUNK disagrees with {lib_name}")
+                _libs[lib_name] = lib
+    return _libs[name]
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -128,15 +159,22 @@ def check_tile_lists(gid_sorted: torch.Tensor, tile_starts: torch.Tensor,
             f"gid_sorted, and each id in [0, {n_gauss})")
 
 
-def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
-                        tile_starts, tile_counts, grid: TileGrid, *,
-                        tile_base: int = 0) -> CompositeOutput:
-    """Composite every tile with the forward kernel. Per-Gaussian inputs
-    xy [N,2], conic [N,3], opacity [N], rgb [N,3], depth [N], feat [N,F]
-    f32; gid_sorted [L], tile_starts/tile_counts [T] int32, all contiguous
-    CUDA tensors (anything else raises). Outputs are in tile layout
-    ([T, P, ...]); tile t is global tile ``tile_base + t``."""
-    global FORWARD_LAUNCHES
+def check_tile_partition(tile_starts: torch.Tensor, tile_counts: torch.Tensor,
+                         n_inst: int):
+    """Raise unless the tiles' lists, in tile order, cover the ``n_inst``
+    entries of gid_sorted exactly once (as ``ops.binning`` lays them out):
+    the backward kernel writes one row per list entry and no other."""
+    counts = tile_counts.long()
+    bad = (tile_starts.long() != torch.cumsum(counts, 0) - counts).any()
+    if bool(bad | (counts.sum() != n_inst)):
+        raise ValueError("tile lists must cover the entries of gid_sorted in "
+                         "order, each exactly once")
+
+
+def _check_splats(xy, conic, opacity, rgb, depth, feat, gid_sorted,
+                  tile_starts, tile_counts, grid: TileGrid):
+    """Device, dtype, shape and contiguity of the splat inputs both kernels
+    take; returns (device, N, F, T, P)."""
     dev = xy.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -153,24 +191,50 @@ def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     _check("gid_sorted", gid_sorted, i32, (gid_sorted.shape[0],), dev)
     _check("tile_starts", tile_starts, i32, (n_tiles,), dev)
     _check("tile_counts", tile_counts, i32, (n_tiles,), dev)
-    p = grid.pixels_per_tile
+    return dev, n, f_dim, n_tiles, grid.pixels_per_tile
+
+
+def _check_smem(lib, name: str, p: int, f_dim: int):
+    smem = getattr(lib, f"f3dgs_{name}_smem_bytes")(p, f_dim)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: {f_dim} feature channels at {p}-pixel "
+                         f"tiles need {smem} bytes of shared memory "
+                         f"(> {MAX_SMEM_BYTES})")
+
+
+def _raise_on(lib, name: str, err: int):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.f3dgs_error_string(err).decode())
+
+
+def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
+                        tile_starts, tile_counts, grid: TileGrid, *,
+                        tile_base: int = 0) -> CompositeOutput:
+    """Composite every tile with the forward kernel. Per-Gaussian inputs
+    xy [N,2], conic [N,3], opacity [N], rgb [N,3], depth [N], feat [N,F]
+    f32; gid_sorted [L], tile_starts/tile_counts [T] int32, all contiguous
+    CUDA tensors (anything else raises). Outputs are in tile layout
+    ([T, P, ...]); tile t is global tile ``tile_base + t``."""
+    global FORWARD_LAUNCHES
+    dev, n, f_dim, n_tiles, p = _check_splats(
+        xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
+        tile_counts, grid)
     if p > 1024 or p % 4:
         raise ValueError(f"tile of {p} pixels: the kernel needs a multiple "
                          "of 4 pixels, at most 1024")
-    lib = _library()
-    smem = lib.f3dgs_raster_forward_smem_bytes(p, f_dim)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{f_dim} feature channels at {p}-pixel tiles need "
-                         f"{smem} bytes of shared memory (> {MAX_SMEM_BYTES})")
+    lib = _library("raster_forward")
+    _check_smem(lib, "raster_forward", p, f_dim)
     if max(n, gid_sorted.shape[0], n_tiles * p * max(f_dim, 3)) >= 2 ** 31:
         raise ValueError("sizes exceed the kernel's 32-bit indexing")
     check_tile_lists(gid_sorted, tile_starts, tile_counts, n)
 
+    f32 = torch.float32
     color = torch.empty((n_tiles, p, 3), dtype=f32, device=dev)
     feature = torch.empty((n_tiles, p, f_dim), dtype=f32, device=dev)
     depth_out = torch.empty((n_tiles, p), dtype=f32, device=dev)
     final_t = torch.empty((n_tiles, p), dtype=f32, device=dev)
-    n_contrib = torch.empty((n_tiles, p), dtype=i32, device=dev)
+    n_contrib = torch.empty((n_tiles, p), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.f3dgs_raster_forward(
@@ -178,11 +242,72 @@ def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             rgb.data_ptr(), depth.data_ptr(), feat.data_ptr(),
             gid_sorted.data_ptr(), tile_starts.data_ptr(),
             tile_counts.data_ptr(), n_tiles, tile_base, grid.grid_x,
-            grid.grid_y, grid.tile_w, grid.tile_h, f_dim, color.data_ptr(), feature.data_ptr(), depth_out.data_ptr(),
-            final_t.data_ptr(), n_contrib.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("raster_forward launch failed: "
-                           + lib.f3dgs_error_string(err).decode())
+            grid.grid_y, grid.tile_w, grid.tile_h, f_dim, color.data_ptr(),
+            feature.data_ptr(), depth_out.data_ptr(), final_t.data_ptr(),
+            n_contrib.data_ptr(), stream)
+    _raise_on(lib, "raster_forward", err)
     if n_tiles:
         FORWARD_LAUNCHES += 1
     return CompositeOutput(color, feature, depth_out, final_t, n_contrib)
+
+
+def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
+                         tile_starts, tile_counts, grid: TileGrid, g_color,
+                         g_feat, g_depth, g_final_t, final_t, n_contrib, *,
+                         feature_alpha_grad: bool = False,
+                         check_lists: bool = True,
+                         out: BackwardRows | None = None) -> BackwardRows:
+    """Per-entry gradient rows of the forward compositing, from the backward
+    kernel. Takes the forward's inputs, the pixel cotangents g_color
+    [T,P,3], g_feat [T,P,F], g_depth [T,P], g_final_t [T,P] and the
+    forward's final_t [T,P] f32 and n_contrib [T,P] int32, all contiguous
+    CUDA tensors (anything else raises). Returns rows in gid_sorted order:
+    geom [L,10] (x, y, conic a, b, c, opacity, r, g, b, depth) and feature
+    [L,F]. The tiles' lists must cover gid_sorted exactly once, in order
+    (``ops.binning``'s layout); ``check_lists`` verifies that and the ranges
+    with one host sync, and the autograd path skips it because its forward
+    checked the same lists. ``out`` takes preallocated rows (the smoke
+    check fills them with NaN to show that every row is written)."""
+    global BACKWARD_LAUNCHES
+    dev, n, f_dim, n_tiles, p = _check_splats(
+        xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
+        tile_counts, grid)
+    f32 = torch.float32
+    _check("g_color", g_color, f32, (n_tiles, p, 3), dev)
+    _check("g_feat", g_feat, f32, (n_tiles, p, f_dim), dev)
+    for name, x in (("g_depth", g_depth), ("g_final_t", g_final_t),
+                    ("final_t", final_t)):
+        _check(name, x, f32, (n_tiles, p), dev)
+    _check("n_contrib", n_contrib, torch.int32, (n_tiles, p), dev)
+    if p > 1024 or p % 32:
+        raise ValueError(f"tile of {p} pixels: the backward kernel needs a "
+                         "multiple of 32 pixels, at most 1024")
+    n_inst = gid_sorted.shape[0]
+    if max(n * max(f_dim, 3), n_inst * max(f_dim, 10),
+           n_tiles * p * max(f_dim, 3)) >= 2 ** 31:
+        raise ValueError("sizes exceed the kernel's 32-bit indexing")
+    lib = _library("raster_backward")
+    _check_smem(lib, "raster_backward", p, f_dim)
+    if check_lists:
+        check_tile_lists(gid_sorted, tile_starts, tile_counts, n)
+        check_tile_partition(tile_starts, tile_counts, n_inst)
+    if out is None:
+        out = BackwardRows(torch.empty((n_inst, 10), dtype=f32, device=dev),
+                           torch.empty((n_inst, f_dim), dtype=f32, device=dev))
+    _check("out.geom", out.geom, f32, (n_inst, 10), dev)
+    _check("out.feature", out.feature, f32, (n_inst, f_dim), dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.f3dgs_raster_backward(
+            xy.data_ptr(), conic.data_ptr(), opacity.data_ptr(),
+            rgb.data_ptr(), depth.data_ptr(), feat.data_ptr(),
+            gid_sorted.data_ptr(), tile_starts.data_ptr(),
+            tile_counts.data_ptr(), g_color.data_ptr(), g_feat.data_ptr(),
+            g_depth.data_ptr(), g_final_t.data_ptr(), final_t.data_ptr(),
+            n_contrib.data_ptr(), n_tiles, grid.grid_x, grid.tile_w,
+            grid.tile_h, f_dim, int(feature_alpha_grad), out.geom.data_ptr(),
+            out.feature.data_ptr(), stream)
+    _raise_on(lib, "raster_backward", err)
+    if n_tiles:
+        BACKWARD_LAUNCHES += 1
+    return out

@@ -1,9 +1,14 @@
 """Rasterization API: preprocess -> binning -> compositing -> image assembly.
 
-Port of the forward of ``feature3dgs_tpu/ops/rasterize.py:rasterize``: one
+Port of ``feature3dgs_tpu/ops/rasterize.py:rasterize``: one differentiable
 call renders RGB + N-dim semantic features + depth, returned HWC, with the
-same radii, visibility, ``n_contrib`` and overflow counters. This slice is
-forward-only (serving); the backward kernel comes with training.
+same radii, visibility, ``n_contrib`` and overflow counters. Preprocess is
+ordinary autograd; binning is integer work on detached inputs; the
+compositing is one ``torch.autograd.Function`` whose forward and backward
+are the CUDA kernels (or, for CPU tensors, their plain versions), and whose
+per-entry gradient rows are summed per Gaussian by ``ops.segment``.
+``ndc_offset`` (a zero [N,2] tensor that requires grad) yields the NDC-space
+positional gradients densification accumulates.
 """
 from __future__ import annotations
 
@@ -15,8 +20,12 @@ import torch
 from feature3dgs_tpu_torch.core import projection as proj_lib
 from feature3dgs_tpu_torch.ops import binning as binning_lib
 from feature3dgs_tpu_torch.ops.binning import TileGrid
-from feature3dgs_tpu_torch.ops.composite import ALPHA_MIN, composite_plain
-from feature3dgs_tpu_torch.ops.cuda_raster import raster_forward_cuda
+from feature3dgs_tpu_torch.ops.composite import (ALPHA_MIN, CompositeOutput,
+                                                 composite_plain,
+                                                 composite_plain_backward)
+from feature3dgs_tpu_torch.ops.cuda_raster import (raster_backward_cuda,
+                                                   raster_forward_cuda)
+from feature3dgs_tpu_torch.ops.segment import SegmentPlan
 
 BACKENDS = ("auto", "cuda", "plain")
 
@@ -45,9 +54,12 @@ class RasterConfig:
     instance_capacity: cap on (Gaussian, tile) instances; Gaussians beyond
       it are dropped whole, highest index first (0 = 1 << 20). Per-tile
       lists are never truncated.
-    backend: 'auto' = the CUDA kernel for CUDA tensors, the plain version
-      for CPU tensors; 'cuda' = the kernel (CUDA tensors only); 'plain' =
-      the plain version on any device (tests and the chip smoke check).
+    backend: 'auto' = the CUDA kernels for CUDA tensors, the plain
+      versions for CPU tensors; 'cuda' = the kernels (CUDA tensors only);
+      'plain' = the plain versions on any device (tests and the chip smoke
+      check). The backward follows the same choice as the forward.
+    feature_alpha_grad: the reference leaves the feature -> alpha gradient
+      coupling out (backward.cu:575); True restores the complete gradient.
     """
 
     tile_w: int = 32
@@ -55,6 +67,7 @@ class RasterConfig:
     chunk: int = 128
     instance_capacity: int = 0
     backend: str = "auto"
+    feature_alpha_grad: bool = False
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -152,12 +165,77 @@ def composite_inputs(means3d, opacities, semantic_features, cam, *,
     bins = binning_lib.bin_gaussians(
         rect_min, rect_max, pre.depth.detach(), valid, grid,
         instance_capacity=config.instance_capacity_or_default)
-    args = (xy.detach().contiguous(), pre.conic.detach().contiguous(),
-            pre.opacity.detach().contiguous(), pre.rgb.detach().contiguous(),
-            pre.depth.detach().contiguous(),
-            semantic_features.detach().contiguous(), bins.gid_sorted,
-            bins.tile_starts, bins.tile_counts, grid)
+    args = (xy.contiguous(), pre.conic.contiguous(),
+            pre.opacity.contiguous(), pre.rgb.contiguous(),
+            pre.depth.contiguous(), semantic_features.contiguous(),
+            bins.gid_sorted, bins.tile_starts, bins.tile_counts, grid)
     return CompositeInputs(pre, valid, bins, grid, args)
+
+
+def _use_kernels(config: RasterConfig, x: torch.Tensor) -> bool:
+    """The one place the compositors are chosen: the kernels for every
+    tensor that is not on the CPU (the kernel wrappers raise off CUDA)."""
+    return not (config.backend == "plain"
+                or (config.backend == "auto" and x.device.type == "cpu"))
+
+
+class _Composite(torch.autograd.Function):
+    """Forward and backward compositing of one view. Differentiable inputs:
+    xy, conic, opacity, rgb, depth, feat; differentiable outputs: color,
+    feature, depth and final_T (``color + final_T * bg`` needs its
+    cotangent); n_contrib is not."""
+
+    @staticmethod
+    def forward(ctx, xy, conic, opacity, rgb, depth, feat, gid_sorted,
+                tile_starts, tile_counts, grid, config):
+        args = (xy, conic, opacity, rgb, depth, feat, gid_sorted,
+                tile_starts, tile_counts, grid)
+        if _use_kernels(config, xy):
+            out = raster_forward_cuda(*args)
+        else:
+            out = composite_plain(*args, chunk=config.chunk)
+        ctx.grid, ctx.config = grid, config
+        ctx.save_for_backward(xy, conic, opacity, rgb, depth, feat,
+                              gid_sorted, tile_starts, tile_counts,
+                              out.final_T, out.n_contrib)
+        ctx.mark_non_differentiable(out.n_contrib)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, g_color, g_feat, g_depth, g_final_t, _g_ncontrib):
+        (xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
+         tile_counts, final_t, n_contrib) = ctx.saved_tensors
+        config = ctx.config
+        n_tiles, p = final_t.shape
+        shapes = ((n_tiles, p, 3), (n_tiles, p, feat.shape[-1]), (n_tiles, p),
+                  (n_tiles, p))
+        g_color, g_feat, g_depth, g_final_t = (
+            torch.zeros(shape, dtype=final_t.dtype, device=final_t.device)
+            if g is None else g.contiguous()
+            for g, shape in zip((g_color, g_feat, g_depth, g_final_t), shapes))
+        args = (xy, conic, opacity, rgb, depth, feat, gid_sorted,
+                tile_starts, tile_counts, ctx.grid, g_color, g_feat, g_depth,
+                g_final_t, final_t, n_contrib)
+        if _use_kernels(config, xy):
+            # the forward's wrapper checked these lists; binning lays them
+            # out as the kernel's one-row-per-entry output needs
+            rows = raster_backward_cuda(
+                *args, feature_alpha_grad=config.feature_alpha_grad,
+                check_lists=False)
+        else:
+            rows = composite_plain_backward(
+                *args, chunk=config.chunk,
+                feature_alpha_grad=config.feature_alpha_grad)
+        plan = SegmentPlan(gid_sorted, xy.shape[0])
+        dg = plan.sum(rows.geom)
+        d_feat = plan.sum(rows.feature) if ctx.needs_input_grad[5] else None
+        return (dg[:, 0:2], dg[:, 2:5], dg[:, 5], dg[:, 6:9], dg[:, 9],
+                d_feat, None, None, None, None, None)
+
+
+def composite(args: tuple, config: RasterConfig) -> CompositeOutput:
+    """Differentiable compositing of ``composite_inputs(...).args``."""
+    return CompositeOutput(*_Composite.apply(*args, config))
 
 
 def rasterize(
@@ -178,7 +256,7 @@ def rasterize(
     active_mask: torch.Tensor | None = None,
     config: RasterConfig = RasterConfig(),
 ) -> RasterOutput:
-    """Render RGB + semantic features + depth of one view (forward only).
+    """Render RGB + semantic features + depth of one view, differentiably.
 
     Provide shs(+sh_degree) or colors_precomp, and scales+rotations or
     cov3d_precomp. ``semantic_features`` is [N, F]; ``bg`` is [3] (black
@@ -189,13 +267,7 @@ def rasterize(
         sh_degree=sh_degree, colors_precomp=colors_precomp,
         scale_modifier=scale_modifier, ndc_offset=ndc_offset,
         active_mask=active_mask, config=config)
-    # the one place the compositor is chosen: the kernel for every tensor
-    # that is not on the CPU (raster_forward_cuda raises off CUDA)
-    on_cpu = ci.args[0].device.type == "cpu"
-    if config.backend == "plain" or (config.backend == "auto" and on_cpu):
-        out = composite_plain(*ci.args, chunk=config.chunk)
-    else:
-        out = raster_forward_cuda(*ci.args)
+    out = composite(ci.args, config)
 
     grid = ci.grid
     if bg is None:

@@ -1,0 +1,33 @@
+"""Per-entry gradient rows -> per-Gaussian gradients, deterministically.
+
+Port of the ``jax.ops.segment_sum`` in
+``feature3dgs_tpu/ops/pallas_raster.py:_cp_bwd``: the compositing kernels
+write one gradient row per (Gaussian, tile) entry of gid_sorted, and each
+Gaussian's gradient is the sum of its rows. No float atomics (no
+``index_add_``): a stable sort groups the rows by Gaussian, keeping their
+(tile, depth) order, and ``torch.segment_reduce`` sums each group in that
+order, so the same rows give the same bits. The JAX package's
+``live_row_threshold`` has no counterpart: both versions of the backward
+write every row.
+"""
+from __future__ import annotations
+
+import torch
+
+
+class SegmentPlan:
+    """The grouping of gid_sorted's entries by Gaussian, shared by every
+    row array of one backward: ``order`` [L] (stable sort of the ids) and
+    ``lengths`` [N] (entries per Gaussian). No host sync."""
+
+    def __init__(self, gid_sorted: torch.Tensor, n_gauss: int):
+        ids, self.order = torch.sort(gid_sorted.long(), stable=True)
+        bounds = torch.searchsorted(
+            ids, torch.arange(n_gauss + 1, device=ids.device))
+        self.lengths = bounds[1:] - bounds[:-1]
+
+    def sum(self, rows: torch.Tensor) -> torch.Tensor:
+        """[L, C] rows in gid_sorted order -> [N, C] sums per Gaussian
+        (zeros for a Gaussian with no entry)."""
+        return torch.segment_reduce(rows[self.order], "sum",
+                                    lengths=self.lengths, unsafe=True)

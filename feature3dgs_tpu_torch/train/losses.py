@@ -1,11 +1,84 @@
-"""Loss-side image ops. This slice ports only the feature resize that
-rendering uses (``scripts/render.py`` resizes rendered features to the
-teacher map's size); the losses themselves come with training.
+"""Training losses and the feature resize, in PyTorch.
+
+Port of ``feature3dgs_tpu/train/losses.py`` (the original
+utils/loss_utils.py:17-75 and train.py:98-105): L1/L2, PSNR, the 11-tap
+Gaussian-window SSIM with zero padding, ``rgb_loss`` and the
+align_corners=True bilinear resize that matches rendered feature maps to
+the teacher map. Images are HWC, as in the JAX package. No Pallas kernel is
+involved: the blur is a depthwise ``F.conv2d`` (full f32: the package turns
+cuDNN's TF32 off) and the resize is ``F.interpolate``.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from feature3dgs_tpu_torch.ops.rasterize import tiles_to_image
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - target))
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - target) ** 2)
+
+
+def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-image PSNR over flattened pixels (utils/image_utils.py:23-25)."""
+    mse = torch.mean((pred - target) ** 2)
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse))
+
+
+@functools.lru_cache(maxsize=8)
+def _gaussian_taps(window_size: int, sigma: float) -> np.ndarray:
+    """Per-tap f32 weights, normalised in f64 as the JAX package's
+    ``_gaussian_taps``."""
+    xs = np.arange(window_size)
+    g = np.exp(-((xs - window_size // 2) ** 2) / (2.0 * sigma ** 2))
+    return (g / g.sum()).astype(np.float32)
+
+
+def _blur(x: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
+    """Zero-padded separable Gaussian blur of [C, H, W], rows then columns,
+    as depthwise convolutions."""
+    c = x.shape[0]
+    half = window_size // 2
+    taps = torch.from_numpy(_gaussian_taps(window_size, sigma)).to(x.device)
+    ky = taps.view(1, 1, window_size, 1).expand(c, 1, window_size, 1)
+    kx = taps.view(1, 1, 1, window_size).expand(c, 1, 1, window_size)
+    y = F.conv2d(x[None], ky, padding=(half, 0), groups=c)
+    return F.conv2d(y, kx, padding=(0, half), groups=c)[0]
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+         sigma: float = 1.5) -> torch.Tensor:
+    """Mean SSIM over an HWC image pair (loss_utils.py:33-63). The five
+    blurred maps go through one pair of depthwise convolutions."""
+    a = img1.permute(2, 0, 1)
+    b = img2.permute(2, 0, 1)
+    c = a.shape[0]
+    blurred = _blur(torch.cat([a, b, a * a, b * b, a * b], 0), window_size,
+                    sigma)
+    mu1, mu2, e11, e22, e12 = torch.split(blurred, c, 0)
+    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    s1 = e11 - mu1_sq
+    s2 = e22 - mu2_sq
+    s12 = e12 - mu12
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    m = (((2 * mu12 + c1) * (2 * s12 + c2))
+         / ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2)))
+    return torch.mean(m)
+
+
+def rgb_loss(image: torch.Tensor, gt: torch.Tensor, lambda_dssim: float = 0.2):
+    """(1-λ)·L1 + λ·(1-SSIM) (train.py:105). Returns (loss, l1)."""
+    ll1 = l1_loss(image, gt)
+    loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim(image, gt))
+    return loss, ll1
 
 
 def resize_bilinear_align_corners(img: torch.Tensor, out_h: int,
@@ -20,3 +93,14 @@ def resize_bilinear_align_corners(img: torch.Tensor, out_h: int,
     out = F.interpolate(chw, size=(out_h, out_w), mode="bilinear",
                         align_corners=True)
     return out[0].permute(1, 2, 0)
+
+
+def resize_bilinear_from_tiles(tiles: torch.Tensor, grid, out_h: int,
+                               out_w: int) -> torch.Tensor:
+    """align_corners bilinear resize of the rasterizer's tile layout
+    [num_tiles, pixels_per_tile, C] to [out_h, out_w, C]. Unlike the JAX
+    package, which folds the tile permutation into its interpolation
+    operators, this assembles the [H, W, C] image first (one extra copy of
+    the feature map) and resizes it."""
+    return resize_bilinear_align_corners(tiles_to_image(tiles, grid), out_h,
+                                         out_w)

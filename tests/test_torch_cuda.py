@@ -1,12 +1,14 @@
-"""The forward compositing kernel on the card against its plain version.
+"""The compositing kernels on the card against their plain versions.
 
 Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped elsewhere. On
 the card, run without the JAX-side conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Bars as tests/test_pallas.py: 1e-5 absolute on color, features and
-final_T, 1e-4 on depth, n_contrib exactly.
+Bars as tests/test_pallas.py: forward 1e-5 absolute on color, features and
+final_T, 1e-4 on depth, n_contrib exactly; backward 5e-6 on every gradient
+group (per-entry rows and per-Gaussian sums) after dividing by the group's
+largest magnitude.
 """
 import math
 
@@ -111,3 +113,101 @@ def test_kernel_wrapper_rejects_bad_inputs(dev):
     bad[8][-1] = args[6].numel() + 1      # the last tile's list leaves gid_sorted
     with pytest.raises(ValueError, match="tile lists out of range"):
         cuda_raster.raster_forward_cuda(*bad)
+
+
+# gradient groups of the backward's rows: (name, first column, end column)
+GROUPS = (("xy", 0, 2), ("conic", 2, 5), ("opacity", 5, 6), ("rgb", 6, 9),
+          ("depth", 9, 10))
+
+
+def _norm_err(got, ref):
+    s = max(float(ref.abs().max()), 1e-9)
+    return float((got - ref).abs().max()) / s
+
+
+def _backward_inputs(dev, f_dim, seed=0):
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    ci = _inputs(dev, f_dim, 16, 16, 3.0)
+    fwd = cuda_raster.raster_forward_cuda(*ci.args)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cts = [torch.randn(x.shape, generator=gen).to(dev)
+           for x in (fwd.color, fwd.feature, fwd.depth, fwd.final_T)]
+    return ci, (*cts, fwd.final_T, fwd.n_contrib)
+
+
+@pytest.mark.parametrize("f_dim,fag", [(4, False), (4, True), (128, False),
+                                       (128, True), (512, False), (512, True)])
+def test_backward_kernel_matches_plain(dev, f_dim, fag):
+    """Per-entry rows and per-Gaussian gradients against the plain version;
+    rows first filled with NaN all get written; two runs are bit-equal."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.composite import (BackwardRows,
+                                                     composite_plain_backward)
+    from feature3dgs_tpu_torch.ops.segment import SegmentPlan
+    ci, rest = _backward_inputs(dev, f_dim)
+    n_inst = ci.bins.gid_sorted.shape[0]
+    poisoned = BackwardRows(
+        torch.full((n_inst, 10), float("nan"), device=dev),
+        torch.full((n_inst, f_dim), float("nan"), device=dev))
+    before = cuda_raster.BACKWARD_LAUNCHES
+    got = cuda_raster.raster_backward_cuda(*ci.args, *rest,
+                                           feature_alpha_grad=fag,
+                                           out=poisoned)
+    assert cuda_raster.BACKWARD_LAUNCHES == before + 1
+    ref = composite_plain_backward(*ci.args, *rest, chunk=16,
+                                   feature_alpha_grad=fag)
+    torch.cuda.synchronize()
+    assert not got.geom.isnan().any() and not got.feature.isnan().any()
+    plan = SegmentPlan(ci.bins.gid_sorted, ci.args[0].shape[0])
+    for name, a, b in GROUPS:
+        assert _norm_err(got.geom[:, a:b], ref.geom[:, a:b]) <= 5e-6, name
+        assert _norm_err(plan.sum(got.geom[:, a:b]),
+                         plan.sum(ref.geom[:, a:b])) <= 5e-6, name
+    assert _norm_err(got.feature, ref.feature) <= 5e-6
+    assert _norm_err(plan.sum(got.feature), plan.sum(ref.feature)) <= 5e-6
+    again = cuda_raster.raster_backward_cuda(*ci.args, *rest,
+                                             feature_alpha_grad=fag)
+    assert torch.equal(again.geom, got.geom)
+    assert torch.equal(again.feature, got.feature)
+    assert torch.equal(SegmentPlan(ci.bins.gid_sorted, ci.args[0].shape[0])
+                       .sum(again.feature), plan.sum(got.feature))
+
+
+def test_rasterize_backward_on_the_card(dev):
+    """One forward and one backward launch per differentiable render, with
+    gradients equal to the plain backend's."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig, rasterize
+    rng = np.random.RandomState(2)
+    n = 300
+    q = rng.randn(n, 4)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    base = {"means3d": rng.uniform(-1.5, 1.5, (n, 3)),
+            "scales": np.exp(rng.uniform(-3.5, -1.5, (n, 3))), "rotations": q,
+            "opacities": rng.uniform(0.2, 0.95, n),
+            "shs": rng.randn(n, 9, 3) * 0.3, "feat": rng.randn(n, 32)}
+    from feature3dgs_tpu_torch.convert import camera_from_numpy
+    from feature3dgs_tpu_torch.core import transforms
+    view = transforms.world_to_view(np.eye(3), np.array([0.0, 0.0, 4.0]))
+    proj = transforms.projection_matrix(0.01, 100.0, 1.0, 0.8) @ view
+    cam = camera_from_numpy(view, proj, transforms.camera_center_from_view(
+        view).astype(np.float32), math.tan(0.5), math.tan(0.4), 96, 64, dev)
+    grads = {}
+    for backend in ("cuda", "plain"):
+        leaves = {k: torch.tensor(v.astype(np.float32), device=dev,
+                                  requires_grad=True) for k, v in base.items()}
+        f0, b0 = cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES
+        out = rasterize(leaves["means3d"], leaves["opacities"], leaves["feat"],
+                        cam, scales=leaves["scales"],
+                        rotations=leaves["rotations"], shs=leaves["shs"],
+                        sh_degree=2, bg=torch.tensor([0.2, 0.5, 0.1],
+                                                     device=dev),
+                        config=RasterConfig(backend=backend))
+        (out.color.square().mean() + out.feature.abs().mean()
+         + out.depth.mean()).backward()
+        launches = (cuda_raster.FORWARD_LAUNCHES - f0,
+                    cuda_raster.BACKWARD_LAUNCHES - b0)
+        assert launches == ((1, 1) if backend == "cuda" else (0, 0))
+        grads[backend] = {k: v.grad for k, v in leaves.items()}
+    for k in base:
+        assert _norm_err(grads["cuda"][k], grads["plain"][k]) <= 5e-6, k

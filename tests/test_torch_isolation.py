@@ -61,6 +61,28 @@ def test_importing_the_port_loads_no_jax():
     assert int(proc.stdout.split()[-1]) >= 20   # every module was imported
 
 
+def test_first_threaded_cpu_math_is_exact():
+    """In a fresh process the first multi-threaded torch.exp on the CPU can
+    return values off by ~1e-4 relative (about one process in two without
+    the warm-up in feature3dgs_tpu_torch/__init__.py); importing the port
+    must make it exact. Six processes: all clean."""
+    code = (
+        "import numpy as np, torch\n"
+        "import feature3dgs_tpu_torch\n"
+        "torch.set_num_threads(8)\n"
+        "(torch.ones(1 << 20) + 1).sum()\n"
+        "x = torch.from_numpy(np.random.RandomState(0).rand(6, 24, 256)"
+        ".astype(np.float32) * -3.0)\n"
+        "print(int((torch.exp(x) != torch.exp(x)).sum()))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(6)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [e for _, e in outs]
+    assert [int(o.split()[-1]) for o, _ in outs] == [0] * 6
+
+
 def test_default_device_needs_cuda_unless_cpu_is_asked(monkeypatch):
     from feature3dgs_tpu_torch import default_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -107,9 +129,25 @@ def _call_entry_point(name, tmp_path, **kw):
                      fovx=1.0, fovy=0.8, image=None, image_name="x",
                      semantic_feature=None, width=8, height=6)
         return cam.to_view(**kw)
+    fields = {k: np.zeros((3, 1)) for k in G.GaussianParams.FIELDS}
     if name == "gaussians_from_numpy":
-        fields = {k: np.zeros((3, 1)) for k in G.GaussianParams.FIELDS}
         return convert.gaussians_from_numpy(fields, np.ones(3, bool), 0, **kw)
+    if name == "train_state_from_numpy":
+        z = np.zeros(3)
+        return convert.train_state_from_numpy({
+            "params": fields,
+            "gstate": {"alive": np.ones(3, bool), "max_radii2d": z,
+                       "xyz_gradient_accum": z, "denom": z,
+                       "active_sh_degree": 0, "spatial_lr_scale": 1.0},
+            "adam": {"mu": fields, "nu": fields, "step": 0}}, **kw)
+    if name in ("init_adam", "TrainState.create"):
+        from feature3dgs_tpu_torch.model.optim import init_adam
+        from feature3dgs_tpu_torch.train.trainer import TrainState
+        params, gstate = convert.gaussians_from_numpy(
+            fields, np.ones(3, bool), 0, "cpu")
+        if name == "init_adam":
+            return init_adam(params, **kw)
+        return TrainState.create(params, gstate, **kw)
     if name == "decoder_from_numpy":
         return convert.decoder_from_numpy({"w": eye, "b": eye[0]}, **kw)
     assert name == "camera_from_numpy"
@@ -120,7 +158,8 @@ def _call_entry_point(name, tmp_path, **kw):
 ENTRY_POINTS = ["load_gaussians_ply", "load_decoder_checkpoint",
                 "init_decoder", "create_from_pcd", "Camera.to_view",
                 "gaussians_from_numpy", "decoder_from_numpy",
-                "camera_from_numpy"]
+                "camera_from_numpy", "train_state_from_numpy", "init_adam",
+                "TrainState.create"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -133,3 +172,19 @@ def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _call_entry_point(name, tmp_path)
+
+
+def test_backward_kernel_wrapper_raises_on_cpu_tensors():
+    """No hidden fallback: the backward kernel's wrapper refuses CPU
+    tensors (the plain version runs only through ops.rasterize's choice)."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.binning import TileGrid
+    grid = TileGrid(32, 16, 32, 16)
+    n, p = 4, grid.pixels_per_tile
+    z = lambda *shape: torch.zeros(shape)
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_raster.raster_backward_cuda(
+            z(n, 2), z(n, 3), z(n), z(n, 3), z(n), z(n, 4), i32(0), i32(1),
+            i32(1), grid, z(1, p, 3), z(1, p, 4), z(1, p), z(1, p), z(1, p),
+            i32(1, p))

@@ -38,9 +38,46 @@ Phases, one line each; any failure raises and exits non-zero:
                Then 2 steps of the --speedup variant (128 rendered
                channels, the 128->512 decoder, a 512-d teacher): finite,
                and the decoder moves.
+  kernel_alpha_small  both kernels in the alpha_matmul mode against the
+               plain versions in the same mode at the test scenes (16x16
+               tiles, F = 4 and 128, boosted opacities): 1e-4 absolute on
+               color, features and final_T, 5e-4 on depth, n_contrib
+               differing on fewer than 1% of pixels by at most 1, gradient
+               rows 1e-4 max-normalised, NaN-poisoned rows all written; and
+               against the exact mode's kernels at the same bars, with the
+               count and size of the n_contrib differences.
+  kernel_alpha_full   the same at the training scene with the cotangents of
+               bench.py's loss, mode off and on in turns: forward against
+               the plain version at the same bars and against the exact
+               mode at 5x them on all but 0.01% of the pixels, gradient
+               rows at 1e-3 (against the exact mode: per-Gaussian sums, on
+               all but 0.1% of the Gaussians); ms of each kernel (20 launches), the bytes bound,
+               n_contrib differences, gradient error max-normalised.
+  train_loop   the host loop at full width: a SceneData in memory (the
+               scene above as a point cloud, the 8 orbit cameras, a U(0,1)
+               image and an fp16 608x400x128 teacher each) through Trainer
+               (the package's own KNN, auto instance capacity, capacity
+               headroom 1.0) for 60 steps with the schedule compressed
+               (densify every 10 from 5, opacity reset every 20), then
+               across iteration 1000 (the SH-degree bump). Every loss
+               finite; clones, splits and prunes non-zero; a Gaussian-
+               capacity growth and an instance-capacity growth; one forward
+               and one backward launch per step; a checkpoint saved mid-run
+               resumes in a fresh Trainer to the same next step (loss 1e-5
+               relative, Adam mu 1e-4 max-normalised: F.interpolate's
+               backward sums with atomics); the saved PLY serves finite.
+               Step times (plain steps, steps that carry maintenance), the
+               round's own ms, host syncs per step, peak memory. Then 10
+               steps with alpha_matmul=True from a fresh Trainer.
+  train_cli    python -m feature3dgs_tpu_torch.cli.train as a subprocess on
+               a small Blender-style scene (4 frames of 128x128, 16-d
+               teacher maps, 2000 points), 40 iterations with densify
+               rounds, a save and a checkpoint, then the render CLI on the
+               result; the artifact tree and both exit codes.
 Then the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. With --profile DIR, torch.profiler tables of
-two served views and two training steps are written to DIR.
+two served views and two training steps are written to DIR; --only a,b runs
+just those phases (and prints no result lines).
 """
 from __future__ import annotations
 
@@ -205,23 +242,67 @@ def orbit_view(i):
     return transforms.world_to_view(rot, np.array([0.0, 0.0, 5.0]))
 
 
-def phase_kernel_full(dev, params, state):
+def bench_inputs(dev, params, state):
+    """The training / serving scene from orbit view 0, preprocessed and
+    binned at the default RasterConfig."""
     import torch
     from feature3dgs_tpu_torch.model import gaussians as G
-    from feature3dgs_tpu_torch.ops.composite import composite_plain
-    from feature3dgs_tpu_torch.ops.cuda_raster import (check_tile_lists,
-                                                       raster_forward_cuda)
     from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
                                                      composite_inputs)
     cam = camera(orbit_view(0), WIDTH, HEIGHT, math.tan(0.6), math.tan(0.45),
                  dev)
     opacity = torch.where(state.alive, G.get_opacity(params),
                           torch.zeros((), device=dev))
-    ci = composite_inputs(
+    return composite_inputs(
         params.xyz, opacity, G.get_semantic(params), cam,
         scales=G.get_scaling(params), rotations=G.get_rotation(params),
         shs=G.get_features(params), sh_degree=state.active_sh_degree,
         active_mask=state.alive, config=RasterConfig())
+
+
+def forward_bound(stats, n_tiles, p):
+    """Bytes and operations the forward needs for these inputs, each input
+    read once and each output written once: x, y, conic, opacity of the
+    Gaussians some pixel tests; rgb, depth, features of those that
+    contribute; the list entries tested, the tiles' starts and counts;
+    color, depth, final_T, n_contrib and the features of every pixel."""
+    n_tested = int(stats["tested_gaussians"].sum())
+    n_contributing = int(stats["contributing_gaussians"].sum())
+    n_bytes = 4 * (6 * n_tested + (4 + F_DIM) * n_contributing
+                   + stats["entries_tested"] + 2 * n_tiles
+                   + n_tiles * p * (F_DIM + 6))
+    ops = (OPS_TESTED * stats["tested"]
+           + (OPS_CONTRIB + 2 * F_DIM) * stats["contributing"])
+    return n_bytes, ops, n_tested, n_contributing
+
+
+def backward_bound(stats, n_tiles, p, n_inst):
+    """The same for the backward: the pixel cotangents, final_T and
+    n_contrib; x, y, conic, opacity of the Gaussians some walk reaches, rgb
+    and depth of those that count; the walked list ids, the tiles' starts
+    and counts; one row per entry."""
+    n_walked = int(stats["walked_gaussians"].sum())
+    n_contributing = int(stats["contributing_gaussians"].sum())
+    n_bytes = 4 * (n_tiles * p * (F_DIM + 7) + 6 * n_walked
+                   + 4 * n_contributing + stats["entries_walked"]
+                   + 2 * n_tiles + n_inst * (10 + F_DIM))
+    ops = (OPS_BWD_WALKED * stats["walked"]
+           + (OPS_BWD_CONTRIB + 2 * F_DIM) * stats["contributing"])
+    return n_bytes, ops, n_walked, n_contributing
+
+
+def bound_fields(n_bytes, ops):
+    bytes_ms, ops_ms = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_kernel_full(dev, params, state):
+    import torch
+    from feature3dgs_tpu_torch.ops.composite import composite_plain
+    from feature3dgs_tpu_torch.ops.cuda_raster import (check_tile_lists,
+                                                       raster_forward_cuda)
+    ci = bench_inputs(dev, params, state)
     stats: dict = {}
     ref = composite_plain(*ci.args, chunk=128, stats=stats)
     got = raster_forward_cuda(*ci.args)
@@ -233,20 +314,8 @@ def phase_kernel_full(dev, params, state):
     check_ms = cuda_ms(lambda: check_tile_lists(*ci.args[6:9], N_GAUSS), 20)
     plain_ms = cuda_ms(lambda: composite_plain(*ci.args, chunk=128), 2)
     instances = int(ci.bins.total)
-    n_tiles, p = ci.grid.num_tiles, ci.grid.pixels_per_tile
-    # what this view needs, each input read once and each output written
-    # once: x, y, conic, opacity of the Gaussians some pixel tests; rgb,
-    # depth, features of those that contribute; the list entries tested,
-    # the tiles' starts and counts; color, depth, final_T, n_contrib and
-    # the features of every pixel
-    n_tested = int(stats["tested_gaussians"].sum())
-    n_contributing = int(stats["contributing_gaussians"].sum())
-    n_bytes = 4 * (6 * n_tested + (4 + F_DIM) * n_contributing
-                   + stats["entries_tested"] + 2 * n_tiles
-                   + n_tiles * p * (F_DIM + 6))
-    ops = (OPS_TESTED * stats["tested"]
-           + (OPS_CONTRIB + 2 * F_DIM) * stats["contributing"])
-    bytes_ms, ops_ms = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    n_bytes, ops, n_tested, n_contributing = forward_bound(
+        stats, ci.grid.num_tiles, ci.grid.pixels_per_tile)
     say("kernel_full", instances=instances,
         max_tile_count=int(ci.bins.tile_counts.max()),
         max_abs_err=json.dumps(errs).replace(" ", ""),
@@ -255,11 +324,10 @@ def phase_kernel_full(dev, params, state):
         pairs_contributing=stats["contributing"],
         entries_tested=stats["entries_tested"], gaussians_tested=n_tested,
         gaussians_contributing=n_contributing, bound_bytes=n_bytes,
-        bound_bytes_ms=f"{bytes_ms:.4f}", bound_ops=ops,
-        bound_ops_ms=f"{ops_ms:.4f}")
+        bound_bytes_ms=f"{n_bytes / PEAK_BYTES * 1e3:.4f}", bound_ops=ops,
+        bound_ops_ms=f"{ops / PEAK_F32_FLOPS * 1e3:.4f}")
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            **bound_fields(n_bytes, ops)}
 
 
 def phase_serve(dev, params, state, profile_dir):
@@ -360,6 +428,32 @@ def compare_rows(name, got, ref, plan, tol):
     return worst, abs_err
 
 
+def compare_gaussian_grads(name, got, ref, plan, tol, outliers):
+    """Per-Gaussian gradients (the rows summed by ``plan``) of two backward
+    runs whose forwards may have decided a few marginal pairs differently:
+    a Gaussian is an outlier when any of its gradient groups differs by more
+    than ``tol`` of that group's largest magnitude; at most the share
+    ``outliers`` of the Gaussians may be. Returns (worst normalised error
+    over the others, number of outliers)."""
+    import torch
+    worst = None
+    for group, a, b in GROUPS + (("feature", 0, None),):
+        g = got.feature if group == "feature" else got.geom[:, a:b]
+        r = ref.feature if group == "feature" else ref.geom[:, a:b]
+        if r.numel() == 0:
+            continue
+        g, r = plan.sum(g), plan.sum(r)
+        err = (g - r).abs().amax(-1) / max(float(r.abs().max()), 1e-12)
+        worst = err if worst is None else torch.maximum(worst, err)
+    out = worst > tol
+    n_out = int(out.sum())
+    if n_out > outliers * out.numel():
+        raise AssertionError(f"{name}: {n_out} of {out.numel()} Gaussians "
+                             f"differ by more than {tol} (worst "
+                             f"{float(worst.max())})")
+    return float(worst[~out].max()), n_out
+
+
 def poisoned_rows(n_inst, f_dim, dev):
     import torch
     from feature3dgs_tpu_torch.ops.composite import BackwardRows
@@ -430,22 +524,11 @@ def bench_loss_cotangents(ci, fwd, gt_image, gt_feature):
 
 def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
     import torch
-    from feature3dgs_tpu_torch.model import gaussians as G
     from feature3dgs_tpu_torch.ops.composite import composite_plain_backward
     from feature3dgs_tpu_torch.ops.cuda_raster import (raster_backward_cuda,
                                                        raster_forward_cuda)
-    from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
-                                                     composite_inputs)
     from feature3dgs_tpu_torch.ops.segment import SegmentPlan
-    cam = camera(orbit_view(0), WIDTH, HEIGHT, math.tan(0.6), math.tan(0.45),
-                 dev)
-    opacity = torch.where(state.alive, G.get_opacity(params),
-                          torch.zeros((), device=dev))
-    ci = composite_inputs(
-        params.xyz, opacity, G.get_semantic(params), cam,
-        scales=G.get_scaling(params), rotations=G.get_rotation(params),
-        shs=G.get_features(params), sh_degree=state.active_sh_degree,
-        active_mask=state.alive, config=RasterConfig())
+    ci = bench_inputs(dev, params, state)
     fwd = raster_forward_cuda(*ci.args)
     rest = (*bench_loss_cotangents(ci, fwd, gt_image, gt_feature),
             fwd.final_T, fwd.n_contrib)
@@ -478,19 +561,8 @@ def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
         return p.sum(got.geom), p.sum(got.feature)
 
     segment_ms = cuda_ms(segment_sum, 20)
-    n_tiles, p = ci.grid.num_tiles, ci.grid.pixels_per_tile
-    # each input read once, each output written once: the pixel
-    # cotangents, final_T and n_contrib; x, y, conic, opacity of the
-    # Gaussians some walk reaches, rgb and depth of those that count; the
-    # walked list ids, the tiles' starts and counts; one row per entry
-    n_walked = int(stats["walked_gaussians"].sum())
-    n_contributing = int(stats["contributing_gaussians"].sum())
-    n_bytes = 4 * (n_tiles * p * (F_DIM + 7) + 6 * n_walked
-                   + 4 * n_contributing + stats["entries_walked"]
-                   + 2 * n_tiles + n_inst * (10 + F_DIM))
-    ops = (OPS_BWD_WALKED * stats["walked"]
-           + (OPS_BWD_CONTRIB + 2 * F_DIM) * stats["contributing"])
-    bytes_ms, ops_ms = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    n_bytes, ops, n_walked, n_contributing = backward_bound(
+        stats, ci.grid.num_tiles, ci.grid.pixels_per_tile, n_inst)
     say("kernel_bwd_full", instances=int(ci.bins.total),
         max_norm_err=err, max_abs_err=abs_err, bit_equal_runs=2,
         kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.2f}",
@@ -498,11 +570,10 @@ def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
         pairs_contributing=stats["contributing"],
         entries_walked=stats["entries_walked"], gaussians_walked=n_walked,
         gaussians_contributing=n_contributing, bound_bytes=n_bytes,
-        bound_bytes_ms=f"{bytes_ms:.4f}", bound_ops=ops,
-        bound_ops_ms=f"{ops_ms:.4f}")
+        bound_bytes_ms=f"{n_bytes / PEAK_BYTES * 1e3:.4f}", bound_ops=ops,
+        bound_ops_ms=f"{ops / PEAK_F32_FLOPS * 1e3:.4f}")
     return {"max_abs_err": abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            **bound_fields(n_bytes, ops)}
 
 
 def phase_train(dev, profile_dir):
@@ -598,6 +669,568 @@ def phase_train(dev, profile_dir):
     return (launches[0] + sp_launches[0], launches[1] + sp_launches[1])
 
 
+def compare_alpha(name, got, ref, tol=1e-4, tol_depth=5e-4, outliers=0.0):
+    """The alpha_matmul contract (tests/test_pallas.py:413-419): 1e-4 on
+    color, features and final_T, 5e-4 on depth, n_contrib differing on
+    fewer than 1% of pixels by at most 1. ``outliers`` is the share of
+    pixels that may miss the bars (against the exact mode a splat whose
+    power rounds to just above 0 at its own centre is dropped from that
+    pixel, which then differs visibly and in n_contrib by more than 1).
+    Returns (max abs error over color, features and final_T on the pixels
+    within the bars, pixels outside them, pixels whose n_contrib differs,
+    the largest difference)."""
+    err = {}
+    for k in ("color", "feature", "final_T", "depth"):
+        d = (getattr(got, k) - getattr(ref, k)).abs()
+        err[k] = d if d.dim() == 2 else d.amax(-1)
+    out = ((err["color"] > tol) | (err["feature"] > tol)
+           | (err["final_T"] > tol) | (err["depth"] > tol_depth))
+    diff = (got.n_contrib - ref.n_contrib).abs()
+    n_out, n_diff = int(out.sum()), int((diff > 0).sum())
+    max_diff = int(diff.max()) if outliers else int(diff[~out].max())
+    worst = {k: float(v.max()) for k, v in err.items()}
+    if (n_out > outliers * out.numel() or n_diff >= 0.01 * diff.numel()
+            or (not outliers and max_diff > 1)):
+        raise AssertionError(
+            f"{name}: {n_out} pixels outside the bars (worst {worst}), "
+            f"n_contrib differs on {n_diff} pixels by up to {max_diff}")
+    inside = max(float(err[k][~out].max())
+                 for k in ("color", "feature", "final_T"))
+    return inside, n_out, n_diff, max_diff
+
+
+def phase_kernel_alpha_small(dev):
+    import torch
+    from feature3dgs_tpu_torch.ops.composite import (composite_plain,
+                                                     composite_plain_backward)
+    from feature3dgs_tpu_torch.ops.cuda_raster import (raster_backward_cuda,
+                                                       raster_forward_cuda)
+    from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
+                                                     composite_inputs)
+    from feature3dgs_tpu_torch.ops.segment import SegmentPlan
+    for f_dim, seed in ((4, 1), (128, 4)):
+        g, view = small_scene(300, f_dim, seed, 3.0, dev)
+        cam = camera(view, 64, 48, math.tan(0.5), math.tan(0.4), dev)
+        ci = composite_inputs(
+            g["means3d"], g["opacities"], g["feat"], cam, scales=g["scales"],
+            rotations=g["rotations"], shs=g["shs"], sh_degree=2,
+            config=RasterConfig(tile_w=16, tile_h=16))
+        n_inst = ci.bins.gid_sorted.shape[0]
+        plan = SegmentPlan(ci.bins.gid_sorted, ci.args[0].shape[0])
+        fwd = raster_forward_cuda(*ci.args, alpha_matmul=True)
+        ref = composite_plain(*ci.args, chunk=16, alpha_matmul=True)
+        exact = raster_forward_cuda(*ci.args)
+        torch.cuda.synchronize()
+        tag = f"kernel_alpha_small F={f_dim}"
+        err, _, n_diff, max_diff = compare_alpha(tag + " vs plain", fwd, ref)
+        err_x, _, n_diff_x, max_diff_x = compare_alpha(
+            tag + " vs exact mode", fwd, exact)
+        gen = torch.Generator().manual_seed(seed)
+        cts = [torch.randn(x.shape, generator=gen).to(dev)
+               for x in (fwd.color, fwd.feature, fwd.depth, fwd.final_T)]
+        # the backward re-decides the forward's own pairs, so each mode's
+        # backward takes its own forward's final_T and n_contrib
+        got = raster_backward_cuda(
+            *ci.args, *cts, fwd.final_T, fwd.n_contrib, alpha_matmul=True,
+            out=poisoned_rows(n_inst, f_dim, dev))
+        ref_rows = composite_plain_backward(
+            *ci.args, *cts, fwd.final_T, fwd.n_contrib, chunk=16,
+            alpha_matmul=True)
+        exact_rows = raster_backward_cuda(*ci.args, *cts, exact.final_T,
+                                          exact.n_contrib)
+        torch.cuda.synchronize()
+        assert_all_written(tag, got)
+        g_err, _ = compare_rows(tag + " backward vs plain", got, ref_rows,
+                                plan, 1e-4)
+        g_err_x, _ = compare_rows(tag + " backward vs exact mode", got,
+                                  exact_rows, plan, 1e-4)
+        say("kernel_alpha_small", F=f_dim, instances=int(ci.bins.total),
+            fwd_max_abs_err=err, n_contrib_diff_pixels=n_diff,
+            n_contrib_max_diff=max_diff, bwd_max_norm_err=g_err, nan_rows=0,
+            vs_exact_fwd_max_abs_err=err_x,
+            vs_exact_n_contrib_diff_pixels=n_diff_x,
+            vs_exact_n_contrib_max_diff=max_diff_x,
+            vs_exact_bwd_max_norm_err=g_err_x)
+
+
+def phase_kernel_alpha_full(dev, params, state, gt_image, gt_feature):
+    """Both kernels at the training scene, alpha_matmul off and on in turns;
+    returns the kernels-line fields of the two alpha-mode entries."""
+    import torch
+    from feature3dgs_tpu_torch.ops.composite import (composite_plain,
+                                                     composite_plain_backward)
+    from feature3dgs_tpu_torch.ops.cuda_raster import (raster_backward_cuda,
+                                                       raster_forward_cuda)
+    from feature3dgs_tpu_torch.ops.segment import SegmentPlan
+    ci = bench_inputs(dev, params, state)
+    n_inst = ci.bins.gid_sorted.shape[0]
+    n_tiles, p = ci.grid.num_tiles, ci.grid.pixels_per_tile
+    plan = SegmentPlan(ci.bins.gid_sorted, N_GAUSS)
+
+    def forward(mm):
+        return raster_forward_cuda(*ci.args, alpha_matmul=mm)
+
+    fwd, exact = forward(True), forward(False)
+    f_stats: dict = {}
+    ref = composite_plain(*ci.args, chunk=128, alpha_matmul=True,
+                          stats=f_stats)
+    torch.cuda.synchronize()
+    err, _, n_diff, max_diff = compare_alpha("kernel_alpha_full vs plain",
+                                             fwd, ref)
+    # against the exact mode the bars are 5x the test scenes' (the regrouped
+    # sum's rounding, ~6e-8 x the ~70 its terms reach at a 32-pixel tile with
+    # 3-pixel splats, enters alpha, and the lists are ten times as long), and
+    # 1 pixel in 10,000 may miss them
+    err_x, n_out_x, n_diff_x, max_diff_x = compare_alpha(
+        "kernel_alpha_full vs exact mode", fwd, exact, 5e-4, 2.5e-3, 1e-4)
+    del ref
+    back_args = {}
+    for mm, out in ((True, fwd), (False, exact)):
+        back_args[mm] = (*ci.args, *bench_loss_cotangents(
+            ci, out, gt_image, gt_feature), out.final_T, out.n_contrib)
+
+    def backward(mm, **kw):
+        return raster_backward_cuda(*back_args[mm], alpha_matmul=mm,
+                                    check_lists=False, **kw)
+
+    got = backward(True, out=poisoned_rows(n_inst, F_DIM, dev))
+    b_stats: dict = {}
+    t0 = time.perf_counter()
+    ref_rows = composite_plain_backward(*back_args[True], chunk=128,
+                                        alpha_matmul=True, stats=b_stats)
+    torch.cuda.synchronize()
+    bwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    assert_all_written("kernel_alpha_full", got)
+    # 1e-3, not the test scenes' 1e-4: the chain rule from the coefficient
+    # sums back to the conic cancels terms of the order of xl^2 (up to
+    # ~1000 at 32-pixel tiles) times the result, so the order of the sums
+    # alone moves the conic rows by a few 1e-4 of their largest
+    g_err, g_abs = compare_rows("kernel_alpha_full backward vs plain", got,
+                                ref_rows, plan, 1e-3)
+    del ref_rows
+    # the pixels that dropped a splat at its centre move that Gaussian's
+    # gradient and its neighbours': 1 Gaussian in 1,000 may miss the bar
+    g_err_x, g_out_x = compare_gaussian_grads(
+        "kernel_alpha_full backward vs exact mode", got, backward(False),
+        plan, 1e-3, 1e-3)
+
+    # exact, alpha, alpha, exact: both modes see the same card state
+    ms = {("fwd", False): [], ("fwd", True): [], ("bwd", False): [],
+          ("bwd", True): []}
+    for mm in (False, True, True, False):
+        ms[("fwd", mm)].append(cuda_ms(lambda: forward(mm), 20))
+        ms[("bwd", mm)].append(cuda_ms(lambda: backward(mm), 20))
+    fwd_plain_ms = cuda_ms(lambda: composite_plain(
+        *ci.args, chunk=128, alpha_matmul=True), 2)
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    fb, fo, _, _ = forward_bound(f_stats, n_tiles, p)
+    bb, bo, _, _ = backward_bound(b_stats, n_tiles, p, n_inst)
+    say("kernel_alpha_full", instances=int(ci.bins.total),
+        fwd_ms_exact=json.dumps([round(x, 4) for x in ms[("fwd", False)]]),
+        fwd_ms_alpha=json.dumps([round(x, 4) for x in ms[("fwd", True)]]),
+        bwd_ms_exact=json.dumps([round(x, 4) for x in ms[("bwd", False)]]),
+        bwd_ms_alpha=json.dumps([round(x, 4) for x in ms[("bwd", True)]]),
+        fwd_plain_ms=f"{fwd_plain_ms:.2f}", bwd_plain_ms=f"{bwd_plain_ms:.2f}",
+        fwd_max_abs_err=err, n_contrib_diff_pixels=n_diff,
+        n_contrib_max_diff=max_diff, bwd_max_norm_err=g_err,
+        vs_exact_fwd_max_abs_err=err_x, vs_exact_outlier_pixels=n_out_x,
+        vs_exact_n_contrib_diff_pixels=n_diff_x,
+        vs_exact_n_contrib_max_diff=max_diff_x,
+        vs_exact_bwd_max_norm_err=g_err_x,
+        vs_exact_bwd_outlier_gaussians=g_out_x, fwd_bound_bytes=fb,
+        fwd_bound_ops=fo, bwd_bound_bytes=bb, bwd_bound_ops=bo)
+    return ({"max_abs_err": err, "ms": mean[("fwd", True)],
+             "plain_ms": fwd_plain_ms, **bound_fields(fb, fo)},
+            {"max_abs_err": g_abs, "ms": mean[("bwd", True)],
+             "plain_ms": bwd_plain_ms, **bound_fields(bb, bo)})
+
+
+# the compressed schedule of the train_loop phase
+LOOP_STEPS, LOOP_DENSIFY_FROM, LOOP_DENSIFY_EVERY, LOOP_RESET_EVERY = 60, 5, 10, 20
+LOOP_SYNC_EVERY = 12
+LOOP_EXTENT = 5.5   # 1.1 x the cameras' distance from the scene's centre
+
+
+def loop_scene():
+    """bench.py's scene as a SceneData: 100K points in [-2, 2]^3 with random
+    colours (its draws, seed 0), the 8 orbit cameras of the serve phase,
+    each with a U(0,1) image and an fp16 N(0, 0.1^2) teacher map at half
+    resolution. The orbit cameras share one centre, so the scene radius is
+    given (LOOP_EXTENT) instead of taken from their spread."""
+    from feature3dgs_tpu_torch.data.cameras import Camera
+    from feature3dgs_tpu_torch.data.dataset import SceneData
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-2.0, 2.0, (N_GAUSS, 3)).astype(np.float32)
+    cols = rng.rand(N_GAUSS, 3).astype(np.float32)
+    gen = np.random.default_rng(0)
+    cams = []
+    for i in range(N_VIEWS):
+        c, s = math.cos(0.05 * i), math.sin(0.05 * i)
+        teacher = gen.standard_normal((HEIGHT // 2, WIDTH // 2, F_DIM),
+                                      dtype=np.float32)
+        cams.append(Camera(
+            uid=i, colmap_id=i,
+            R=np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]]),
+            T=np.array([0.0, 0.0, 5.0]), fovx=2 * math.atan(0.6),
+            fovy=2 * math.atan(0.45),
+            image=gen.random((HEIGHT, WIDTH, 3), dtype=np.float32),
+            image_name=f"orbit_{i}",
+            semantic_feature=(teacher * 0.1).astype(np.float16),
+            width=WIDTH, height=HEIGHT))
+    return SceneData(train_cameras=cams, test_cameras=[], points=pts,
+                     colors=cols, nerf_norm={"radius": LOOP_EXTENT},
+                     feature_dim=F_DIM, source_path="<smoke>")
+
+
+def carries_maintenance(it: int) -> bool:
+    """Whether step ``it`` starts with the deferred densify round or opacity
+    reset of iteration it - 1."""
+    prev = it - 1
+    return ((prev > LOOP_DENSIFY_FROM and prev % LOOP_DENSIFY_EVERY == 0)
+            or (prev > 0 and prev % LOOP_RESET_EVERY == 0))
+
+
+def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
+    """Drive ``trainer`` for ``steps`` iterations. Each step's time is the
+    host clock around flush_maintenance + step + synchronize; the flush (the
+    densify round and the reset) is also timed alone. Returns per-iteration
+    records. Steps in ``count_syncs`` run under torch's sync debug mode and
+    count the host reads PyTorch warns about."""
+    import warnings
+
+    import torch
+    from feature3dgs_tpu_torch.model import gaussians as G
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    names = (("FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES") if mm
+             else ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES"))
+    records = []
+    for _ in range(steps):
+        it = trainer.iteration + 1
+        sync = it == 1 or it % LOOP_SYNC_EVERY == 0
+        before = [getattr(cuda_raster, n) for n in names]
+        counting = it in count_syncs
+
+        def watched(fn, *a, **kw):
+            # only the trainer's own calls run under the sync debug mode,
+            # not the synchronize() calls that time them
+            if counting:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            watched(trainer.flush_maintenance)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = watched(trainer.step, sync=sync)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        rec = {"it": it, "sync": sync, "flush_ms": (t1 - t0) * 1e3,
+               "step_ms": (t2 - t0) * 1e3, "loss": m["loss"],
+               "finite": m["finite"],
+               "launches": tuple(getattr(cuda_raster, n) - b
+                                 for n, b in zip(names, before)),
+               "syncs": None}
+        if counting:
+            sites = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                     for w in caught
+                     if "synchronizing CUDA operation" in str(w.message)]
+            rec["syncs"], rec["sync_sites"] = len(sites), sites
+        if sync:
+            rec["num_active"] = int(m["num_active"])
+            rec["num_instances"] = int(m["num_instances"])
+            rec["instance_capacity"] = trainer.rcfg.instance_capacity
+            rec["capacity"] = trainer.ts.params.capacity
+            alive = int(trainer.ts.gstate.alive.sum())
+            if alive != rec["num_active"]:
+                raise AssertionError(f"train_loop: num_active "
+                                     f"{rec['num_active']} but {alive} alive")
+        if it - 1 > 0 and (it - 1) % LOOP_RESET_EVERY == 0:
+            # this step's flush reset the opacities; the step then moved them
+            # by at most one Adam step
+            rec["max_opacity_after_reset"] = float(
+                G.get_opacity(trainer.ts.params, trainer.ts.gstate.alive).max())
+        records.append(rec)
+    return records
+
+
+def phase_train_loop(dev):
+    import torch
+    from feature3dgs_tpu_torch.model.ply_io import load_gaussians_ply
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
+    from feature3dgs_tpu_torch.render import renderer
+    from feature3dgs_tpu_torch.train import checkpoints as ckpt
+    from feature3dgs_tpu_torch.train.trainer import (OptimizationConfig,
+                                                     Trainer)
+    work = os.path.join(ROOT, "build", "smoke", "loop")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    scene = loop_scene()
+    scene_s = time.perf_counter() - t0
+    ocfg = OptimizationConfig(
+        iterations=LOOP_STEPS, densify_from_iter=LOOP_DENSIFY_FROM,
+        densification_interval=LOOP_DENSIFY_EVERY,
+        opacity_reset_interval=LOOP_RESET_EVERY, densify_until_iter=10_000)
+
+    def make(rcfg):
+        return Trainer(scene, ocfg=ocfg, rcfg=rcfg, max_sh_degree=3,
+                       feature_dim=F_DIM, capacity_headroom=1.0, seed=0,
+                       device=dev)
+
+    for name in ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES",
+                 "FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES"):
+        setattr(cuda_raster, name, 0)
+    t0 = time.perf_counter()
+    trainer = make(RasterConfig())
+    init_s = time.perf_counter() - t0
+    cap0, icap0 = trainer.ts.params.capacity, trainer.rcfg.instance_capacity
+    active0 = trainer.ts.gstate.num_active
+
+    records = run_loop(trainer, 2, dev, mm=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records += run_loop(trainer, LOOP_DENSIFY_EVERY - 3, dev, mm=False)
+    # the mean screen-space gradient of the first round, read once here: if
+    # the default threshold would clone or split under 1% of the Gaussians
+    # of this random scene, the 70th percentile takes its place
+    gs = trainer.ts.gstate
+    seen = gs.alive & (gs.denom > 0)
+    grads = (gs.xyz_gradient_accum / gs.denom.clamp_min(1e-20))[seen]
+    default_thr = ocfg.densify_grad_threshold
+    hot_share = float((grads >= default_thr).float().mean())
+    q50, q70, q90 = (float(x) for x in torch.quantile(
+        grads, torch.tensor([0.5, 0.7, 0.9], device=dev)))
+    threshold = default_thr if hot_share >= 0.01 else q70
+    ocfg = dataclasses.replace(ocfg, densify_grad_threshold=threshold)
+    trainer.ocfg = ocfg
+    say("train_loop_threshold", default=default_thr,
+        hot_share_at_default=hot_share, grad_q50=q50, grad_q70=q70,
+        grad_q90=q90, grad_max=float(grads.max()), used=threshold)
+
+    records += run_loop(trainer, 30 - trainer.iteration, dev, mm=False)
+    # checkpoint mid-run (after iteration 30's round, as the CLI does), load
+    # it into a fresh Trainer, and take the same next step in both
+    trainer.flush_maintenance(drain=True)
+    path = ckpt.save_checkpoint(work, trainer.iteration, trainer.ts)
+    other = make(trainer.rcfg)
+    ts, it = ckpt.load_checkpoint(path, device=dev)
+    other.restore_state(ts)
+    other.iteration = it
+    cam = scene.train_cameras[3]
+    m_a = trainer.step(camera=cam, sync=True)
+    m_b = other.step(camera=cam, sync=True)
+    resume_loss = abs(m_a["loss"] - m_b["loss"]) / abs(m_a["loss"])
+    resume_mu = max(norm_err(getattr(other.ts.adam.mu, k),
+                             getattr(trainer.ts.adam.mu, k))
+                    for k in trainer.ts.params.FIELDS)
+    if it != 30 or not resume_loss <= 1e-5 or not resume_mu <= 1e-4:
+        raise AssertionError(f"train_loop: resumed at {it}, next step's loss "
+                             f"off by {resume_loss}, Adam mu by {resume_mu}")
+    ckpt_bytes = os.path.getsize(path)
+    os.remove(path)
+    del other, ts
+
+    window = range(37, 47)      # ten steps without a sync point
+    records += run_loop(trainer, LOOP_STEPS - trainer.iteration, dev,
+                        mm=False, count_syncs=window)
+    ply = ckpt.save_scene_ply(work, trainer.iteration, trainer.ts.params,
+                              trainer.ts.gstate)
+    # iteration 60's round is still pending. If no round has pruned so far
+    # (after a reset every Gaussian of this random scene gains opacity), this
+    # last round alone prunes below the 5th percentile of the opacities
+    # instead of the default 0.005.
+    min_opacity = ocfg.min_opacity
+    if sum(r["num_pruned"] for r in trainer.densify_log) == 0:
+        from feature3dgs_tpu_torch.model import gaussians as G
+        alive = trainer.ts.gstate.alive
+        min_opacity = float(torch.quantile(
+            G.get_opacity(trainer.ts.params)[alive][:1 << 24], 0.05))
+        trainer.ocfg = dataclasses.replace(ocfg, min_opacity=min_opacity)
+    trainer.flush_maintenance(drain=True)
+    trainer.ocfg = ocfg
+    # across iteration 1000, where the SH degree rises
+    degree0 = trainer.ts.gstate.active_sh_degree
+    trainer.iteration = 998
+    records += run_loop(trainer, 3, dev, mm=False)
+    trainer.flush_maintenance(drain=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    vals = torch.stack([torch.as_tensor(r["loss"], dtype=torch.float64,
+                                        device=dev) for r in records]).tolist()
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"train_loop: non-finite loss in {vals}")
+    bad = [(r["it"], r["launches"]) for r in records if r["launches"] != (1, 1)]
+    if bad:
+        raise AssertionError(f"train_loop: launches per step {bad}")
+    log = trainer.densify_log
+    totals = {k: sum(r[k] for r in log)
+              for k in ("num_cloned", "num_split", "num_pruned")}
+    synced = [r for r in records if r["sync"]]
+    grown = [r for r in synced if r["instance_capacity"] > icap0]
+    over = [r for r in grown[1:]
+            if r["num_instances"] > r["instance_capacity"]]
+    resets = [r["max_opacity_after_reset"] for r in records
+              if "max_opacity_after_reset" in r]
+    problems = []
+    if min(totals.values()) <= 0:
+        problems.append(f"clones, splits or prunes missing: {totals}")
+    if len({r["num_active"] for r in synced}) < 2:
+        problems.append("num_active never changed")
+    if trainer.ts.params.capacity <= cap0:
+        problems.append("the Gaussian capacity never grew")
+    if not grown or over:
+        problems.append(f"instance capacity: grown {len(grown)}, over it "
+                        f"after growth {over}")
+    # a reset caps opacity at 0.01; one Adam step at lr 0.05 then moves the
+    # logit by at most ~0.16
+    if not resets or max(resets) > 0.012:
+        problems.append(f"opacity after a reset: {resets}")
+    if trainer.ts.gstate.active_sh_degree != degree0 + 1:
+        problems.append("the SH degree did not rise at iteration 1000")
+    per_step = [r["syncs"] for r in records if r["syncs"] is not None]
+    maint_syncs = [r["syncs"] for r in records
+                   if r["syncs"] is not None and carries_maintenance(r["it"])]
+    if not maint_syncs or max(per_step) != min(per_step):
+        problems.append(f"host reads per step differ in the window (a round "
+                        f"or the loop reads the device): {per_step}")
+    if problems:
+        raise AssertionError("train_loop: " + "; ".join(problems))
+    # where one step of the window blocks on the stream (PyTorch's sync debug
+    # mode names a blocking host-to-device copy as well as a device read)
+    import collections
+    sites = collections.Counter(next(
+        r["sync_sites"] for r in records if r["syncs"] is not None))
+
+    with torch.inference_mode():
+        params, state = load_gaussians_ply(ply, max_sh_degree=3, device=dev)
+        out = renderer.render(params, state,
+                              scene.train_cameras[0].to_view(dev),
+                              config=trainer.rcfg)
+        served_ok = all(bool(torch.isfinite(x).all())
+                        for x in (out.color, out.feature, out.depth))
+        if not served_ok or out.color.shape != (HEIGHT, WIDTH, 3):
+            raise AssertionError("train_loop: the saved PLY does not serve")
+        served_active = state.num_active
+        del params, state, out
+    os.remove(ply)
+    launches = (cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)
+
+    main_run = [r for r in records if 3 <= r["it"] <= LOOP_STEPS
+                and not r["sync"]]
+    plain = [r["step_ms"] for r in main_run if not carries_maintenance(r["it"])]
+    maint = [r["step_ms"] for r in main_run if carries_maintenance(r["it"])]
+    rounds = [r["flush_ms"] for r in records if 3 <= r["it"] <= LOOP_STEPS
+              and (r["it"] - 1) > LOOP_DENSIFY_FROM
+              and (r["it"] - 1) % LOOP_DENSIFY_EVERY == 0]
+    exact_early = [r["step_ms"] for r in records if 3 <= r["it"] <= 10]
+    stat = lambda xs: (f"{statistics.median(xs):.3f}/{min(xs):.3f}/"
+                       f"{max(xs):.3f}")
+    say("train_loop", steps=len(records), scene_s=f"{scene_s:.1f}",
+        trainer_init_s=f"{init_s:.1f}", threshold=threshold,
+        last_round_min_opacity=min_opacity,
+        plain_step_ms_median_min_max=stat(plain), plain_steps=len(plain),
+        maintenance_step_ms_median_min_max=stat(maint),
+        maintenance_steps=len(maint),
+        densify_round_ms_median_min_max=stat(rounds), rounds=len(log),
+        host_syncs_per_step=per_step[0], host_syncs_in_10_steps=sum(per_step),
+        peak_mem_bytes=peak, active_start=active0,
+        active_end=trainer.ts.gstate.num_active, capacity_start=cap0,
+        capacity_end=trainer.ts.params.capacity,
+        instance_capacity_start=icap0,
+        instance_capacity_end=trainer.rcfg.instance_capacity,
+        instances_first_sync=synced[0]["num_instances"],
+        instances_last_sync=synced[-1]["num_instances"],
+        cloned=totals["num_cloned"], split=totals["num_split"],
+        pruned=totals["num_pruned"],
+        max_opacity_after_resets=json.dumps([round(x, 5) for x in resets]),
+        sh_degree=trainer.ts.gstate.active_sh_degree,
+        resume_loss_rel_err=resume_loss, resume_mu_max_norm_err=resume_mu,
+        checkpoint_bytes=ckpt_bytes, served_active=served_active,
+        forward_launches=launches[0], backward_launches=launches[1],
+        loss_first=f"{vals[0]:.6f}", loss_last=f"{vals[-1]:.6f}")
+    say("train_loop_sync_sites", per_step=json.dumps(sites).replace(" ", ""))
+    say("train_loop_rounds", log=json.dumps(log).replace(" ", ""))
+    say("train_loop_steps", step_ms=json.dumps(
+        [round(r["step_ms"], 1) for r in records]).replace(" ", ""))
+    del trainer
+
+    # the same loop's first ten steps with the alpha_matmul mode on
+    alpha = make(RasterConfig(alpha_matmul=True))
+    a_records = run_loop(alpha, 10, dev, mm=True)
+    a_vals = [float(r["loss"]) for r in a_records]
+    a_bad = [r["launches"] for r in a_records if r["launches"] != (1, 1)]
+    if (not all(math.isfinite(v) for v in a_vals) or a_bad or launches != (
+            cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)):
+        raise AssertionError(f"train_loop alpha_matmul: losses {a_vals}, "
+                             f"launches {a_bad}")
+    mm_launches = (cuda_raster.FORWARD_MM_LAUNCHES,
+                   cuda_raster.BACKWARD_MM_LAUNCHES)
+    say("train_loop_alpha", steps=len(a_records),
+        step_ms_median_min_max=stat([r["step_ms"] for r in a_records[2:]]),
+        exact_mode_same_steps_ms_median_min_max=stat(exact_early),
+        forward_mm_launches=mm_launches[0],
+        backward_mm_launches=mm_launches[1],
+        loss_first=f"{a_vals[0]:.6f}", loss_last=f"{a_vals[-1]:.6f}",
+        exact_loss_first=f"{vals[0]:.6f}")
+    return launches, mm_launches
+
+
+def phase_train_cli():
+    """The train CLI, then the render CLI on its output, as subprocesses."""
+    import shutil
+
+    from feature3dgs_tpu_torch.data.synthetic import write_blender_scene
+    work = os.path.join(ROOT, "build", "smoke", "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    scene = write_blender_scene(os.path.join(work, "scene"), n_frames=4,
+                                size=128, f_dim=16, n_pts=2000, seed=0)
+    out = os.path.join(work, "out")
+    base = [sys.executable, "-m"]
+    train = base + [
+        "feature3dgs_tpu_torch.cli.train", "-s", scene, "-m", out, "-f",
+        "lseg", "--iterations", "40", "--densify_from_iter", "5",
+        "--densification_interval", "10", "--opacity_reset_interval", "30",
+        "--densify_grad_threshold", "1e-7", "--save_iterations", "20",
+        "--checkpoint_iterations", "30", "--test_iterations", "40",
+        "--sync_every", "10"]
+    render = base + ["feature3dgs_tpu_torch.cli.render", "-m", out,
+                     "--iteration", "40"]
+    seconds = []
+    for cmd in (train, render):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        seconds.append(time.perf_counter() - t0)
+        if proc.returncode != 0:
+            raise AssertionError(f"train_cli: {' '.join(cmd[2:4])} exited "
+                                 f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+    expect = ["point_cloud/iteration_20/point_cloud.ply",
+              "point_cloud/iteration_40/point_cloud.ply", "cfg_args",
+              "cameras.json", "train_log.jsonl", "chkpnt30.ckpt",
+              "chkpnt30.meta.json", "train/ours_40/renders/00003.png",
+              "train/ours_40/saved_feature/00003_fmap_CxHxW.npy"]
+    missing = [f for f in expect if not os.path.exists(os.path.join(out, f))]
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        last = json.loads(f.read().strip().splitlines()[-1])
+    if (missing or last["iteration"] != 40 or not math.isfinite(last["loss"])
+            or not last["num_active"] > 2000):
+        raise AssertionError(f"train_cli: missing {missing}, last log line "
+                             f"{last}")
+    say("train_cli", train_s=f"{seconds[0]:.1f}", render_s=f"{seconds[1]:.1f}",
+        exit_codes="0,0", iterations=last["iteration"],
+        loss=f"{last['loss']:.5f}", points_start=2000,
+        points_end=int(last["num_active"]), artifacts=len(expect))
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def write_profile(out_dir, name, fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -615,7 +1248,12 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default="",
                     help="directory for profiler tables of two served views "
                     "and two training steps")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run alone (for finding "
+                    "faults; prints no kernels or ok line)")
     args = ap.parse_args(argv)
+    only = set(filter(None, args.only.split(",")))
+    want = lambda phase: not only or phase in only
 
     import torch
     if not torch.cuda.is_available():
@@ -631,26 +1269,49 @@ def main(argv=None) -> int:
              if "registers" in ln or "spill" in ln]
     say("build", seconds=f"{time.time() - t0:.1f}", ptxas=json.dumps(ptxas))
 
-    phase_kernel_small(dev)
+    if want("kernel_small"):
+        phase_kernel_small(dev)
     params, state, gt_image, gt_feature = bench_scene(dev)
-    full = phase_kernel_full(dev, params, state)
-    serve_launches = phase_serve(dev, params, state, args.profile)
-    phase_kernel_bwd_small(dev)
-    bwd = phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature)
+    if want("kernel_full"):
+        full = phase_kernel_full(dev, params, state)
+    if want("serve"):
+        serve_launches = phase_serve(dev, params, state, args.profile)
+    if want("kernel_bwd_small"):
+        phase_kernel_bwd_small(dev)
+    if want("kernel_bwd_full"):
+        bwd = phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature)
+    if want("kernel_alpha_small"):
+        phase_kernel_alpha_small(dev)
+    if want("kernel_alpha_full"):
+        full_mm, bwd_mm = phase_kernel_alpha_full(dev, params, state,
+                                                  gt_image, gt_feature)
     del params, state, gt_image, gt_feature
-    train_fwd, train_bwd = phase_train(dev, args.profile)
+    if want("train"):
+        train_fwd, train_bwd = phase_train(dev, args.profile)
+    if want("train_loop"):
+        loop, loop_mm = phase_train_loop(dev)
+    if want("train_cli"):
+        phase_train_cli()
 
     print(card_line())
+    if only:
+        return 0
     src = "feature3dgs_tpu_torch/ops/csrc/"
+    tpu = "feature3dgs_tpu/ops/pallas_raster.py:"
     print(json.dumps({"kernels": [
         dict(name="raster_forward", route="cuda",
-             source=src + "raster_forward.cu",
-             replaces="feature3dgs_tpu/ops/pallas_raster.py:192",
-             launches=serve_launches + train_fwd, **full, library_ms=None),
+             source=src + "raster_forward.cu", replaces=tpu + "192",
+             launches=serve_launches + train_fwd + loop[0], **full,
+             library_ms=None),
         dict(name="raster_backward", route="cuda",
-             source=src + "raster_backward.cu",
-             replaces="feature3dgs_tpu/ops/pallas_raster.py:495",
-             launches=train_bwd, **bwd, library_ms=None)]}))
+             source=src + "raster_backward.cu", replaces=tpu + "495",
+             launches=train_bwd + loop[1], **bwd, library_ms=None),
+        dict(name="raster_forward_alpha_mm", route="cuda",
+             source=src + "raster_forward.cu", replaces=tpu + "302",
+             launches=loop_mm[0], **full_mm, library_ms=None),
+        dict(name="raster_backward_alpha_mm", route="cuda",
+             source=src + "raster_backward.cu", replaces=tpu + "671",
+             launches=loop_mm[1], **bwd_mm, library_ms=None)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -107,8 +107,11 @@ def main(argv=None):
         dec_path = os.path.join(mcfg.model_path,
                                 f"decoder_chkpnt{iteration}.ckpt")
         if not os.path.exists(dec_path):
-            raise SystemExit(f"{dec_path} not found (reading the decoder "
-                             "from a full training checkpoint is not ported)")
+            # a full training checkpoint of that iteration holds it too
+            full = os.path.join(mcfg.model_path, f"chkpnt{iteration}.ckpt")
+            if not os.path.exists(full):
+                raise SystemExit(f"neither {dec_path} nor {full} found")
+            dec_path = full
         decoder = ckpt.load_decoder_checkpoint(dec_path, device=device)
     bg = torch.tensor([1.0, 1.0, 1.0] if mcfg.white_background
                       else [0.0, 0.0, 0.0], device=device)

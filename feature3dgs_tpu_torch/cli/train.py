@@ -1,0 +1,297 @@
+"""Training CLI: train a scene with PyTorch and CUDA.
+
+    python -m feature3dgs_tpu_torch.cli.train -s <scene> -m <out> -f lseg \\
+        [--speedup] [--alpha_matmul]
+
+The port of ``scripts/train.py``'s single-device path with the same flags
+and the same output folder: ``cfg_args``, ``cameras.json``,
+``train_log.jsonl``, ``point_cloud/iteration_N/point_cloud.ply`` (plus
+``decoder_chkpnt{N}.ckpt`` under ``--speedup``) at ``--save_iterations``,
+saved before that iteration's densify / opacity reset, and ``chkpnt{N}.ckpt``
+at ``--checkpoint_iterations``, saved after it. ``--start_checkpoint`` resumes
+from such a file (either package's). Steps between sync points
+(``--sync_every``) read nothing from the device. The first SIGTERM or SIGINT
+finishes the step in flight, writes a full checkpoint and exits; a second
+one ends the process at once. ``--profile DIR`` writes a ``torch.profiler``
+table and trace of iterations 20-30.
+
+Runs on the CUDA card (``--device cpu`` for the plain versions of the
+kernels). The multi-device flags ``--mesh``, ``--cameras_per_step``,
+``--distributed``, ``--shard_gaussians`` and ``--shard_instances`` are not
+ported and are refused. The network viewer and TensorBoard are not ported
+either: the CLI always behaves as with ``--disable_viewer``.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import signal
+import sys
+import threading
+import time
+import uuid
+from argparse import ArgumentParser
+
+import torch
+
+
+def _refuse_unported(args):
+    unported = [flag for flag, on in (
+        ("--mesh", args.mesh is not None),
+        ("--cameras_per_step", args.cameras_per_step is not None),
+        ("--distributed", args.distributed),
+        ("--shard_gaussians", args.shard_gaussians),
+        ("--shard_instances", args.shard_instances)) if on]
+    if unported:
+        raise SystemExit(
+            f"not ported to feature3dgs_tpu_torch yet: {', '.join(unported)} "
+            "(multi-device training; use scripts/train.py, the JAX package, "
+            "for these)")
+
+
+def build_parser() -> ArgumentParser:
+    from feature3dgs_tpu_torch import config as C
+    parser = ArgumentParser(description="Training script parameters (PyTorch)")
+    C.add_model_args(parser)
+    C.add_optimization_args(parser)
+    C.add_pipeline_args(parser)
+    C.add_raster_args(parser)
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[7_000, 30_000])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--sync_every", type=int, default=10,
+                        help="period of the host's metric reads (and log "
+                             "lines); steps in between read nothing from the "
+                             "device")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="write a torch.profiler table and chrome trace "
+                             "of iterations 20-30 into DIR")
+    parser.add_argument("--disable_viewer", action="store_true",
+                        help="accepted; the network viewer is not ported, so "
+                             "it is always off")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA card)")
+    parser.add_argument("--gt_cache_mb", type=int, default=0,
+                        help="device-memory budget (MB) for cached images "
+                             "and teacher feature maps; 0 keeps every view. "
+                             "Evicted views are uploaded again on their next "
+                             "epoch.")
+    parser.add_argument("--allow_missing_features", action="store_true",
+                        help="train cameras without a teacher feature map "
+                             "get zeros instead of an error")
+    # multi-device flags of scripts/train.py that this package refuses
+    parser.add_argument("--mesh", type=str, default=None, metavar="DxT")
+    parser.add_argument("--cameras_per_step", type=int, default=None)
+    parser.add_argument("--distributed", action="store_true")
+    parser.add_argument("--shard_gaussians", action="store_true")
+    parser.add_argument("--shard_instances", action="store_true")
+    return parser
+
+
+@contextlib.contextmanager
+def _graceful_stop(stop: dict):
+    """First SIGTERM / SIGINT: note it (the loop checkpoints and exits after
+    the step in flight). Second: KeyboardInterrupt."""
+    def request(signum, frame):
+        if stop["sig"] is not None:
+            raise KeyboardInterrupt(f"second signal {signum}")
+        stop["sig"] = signum
+        print(f"\n[preempt] signal {signum}: will checkpoint and exit after "
+              "the current step", flush=True)
+
+    # handlers can only be set from the main thread
+    main = threading.current_thread() is threading.main_thread()
+    prev = {s: signal.signal(s, request)
+            for s in (signal.SIGTERM, signal.SIGINT)} if main else {}
+    try:
+        yield
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    args.save_iterations.append(args.iterations)
+
+    from feature3dgs_tpu_torch import config as C
+    from feature3dgs_tpu_torch import default_device
+    from feature3dgs_tpu_torch.data.dataset import load_scene
+    from feature3dgs_tpu_torch.train import checkpoints as ckpt
+    from feature3dgs_tpu_torch.train.trainer import Trainer
+
+    device = default_device(args.device)
+    mcfg = C.extract_model(args)
+    ocfg = C.extract_optimization(args)
+    rcfg = C.extract_raster(args)
+
+    if not mcfg.model_path:
+        mcfg.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
+    os.makedirs(mcfg.model_path, exist_ok=True)
+    print(f"Output folder: {mcfg.model_path}")
+    print("[viewer] the network viewer and TensorBoard are not ported: "
+          "running as with --disable_viewer")
+
+    scene = load_scene(
+        mcfg.source_path, foundation_model=mcfg.foundation_model or None,
+        images_dir=mcfg.images, resolution=mcfg.resolution,
+        eval_split=mcfg.eval, white_background=mcfg.white_background,
+        allow_missing_features=args.allow_missing_features)
+    print(f"Loaded scene: {len(scene.train_cameras)} train / "
+          f"{len(scene.test_cameras)} test cameras, "
+          f"{scene.points.shape[0]} points, feature dim {scene.feature_dim}")
+    ckpt.save_cfg_args(mcfg.model_path, {
+        **vars(args), "source_path": mcfg.source_path,
+        "model_path": mcfg.model_path})
+    ckpt.save_cameras_json(mcfg.model_path, scene.train_cameras)
+
+    trainer = Trainer(scene, ocfg=ocfg, rcfg=rcfg,
+                      max_sh_degree=mcfg.sh_degree, speedup=mcfg.speedup,
+                      white_background=mcfg.white_background, seed=args.seed,
+                      gt_cache_bytes=args.gt_cache_mb * (1 << 20) or None,
+                      device=device)
+    if args.start_checkpoint:
+        ts, it = ckpt.load_checkpoint(args.start_checkpoint, device=device)
+        trainer.restore_state(ts)
+        trainer.iteration = it
+        print(f"Restored checkpoint at iteration {it}")
+
+    stop = {"sig": None}
+    ema_loss = 0.0
+    t_start = t_sync = time.time()
+    last_sync_it = last_logged_it = 0
+    prof = None
+    log_path = os.path.join(mcfg.model_path, "train_log.jsonl")
+    with _graceful_stop(stop), open(log_path, "a") as logf:
+        while trainer.iteration < ocfg.iterations:
+            if args.profile and prof is None and trainer.iteration >= 20:
+                prof = _start_profile()
+            it = trainer.iteration + 1
+            # sync only where the host reads metrics: every sync_every
+            # iterations and at report, save and checkpoint points
+            sync = (it % args.sync_every == 0 or it >= ocfg.iterations
+                    or it in args.test_iterations
+                    or it in args.save_iterations
+                    or it in args.checkpoint_iterations
+                    or bool(args.profile and it >= 20))
+            metrics = trainer.step(sync=sync)
+            if stop["sig"] is not None:
+                # after densification, like a scheduled checkpoint
+                trainer.flush_maintenance()
+                ckpt.save_checkpoint(mcfg.model_path, trainer.iteration,
+                                     trainer.ts)
+                print(f"[preempt] checkpoint saved at iteration "
+                      f"{trainer.iteration}; resume with --start_checkpoint",
+                      flush=True)
+                break
+            if prof is not None and it >= 30:
+                _stop_profile(prof, args.profile, device)
+                prof, args.profile = None, None
+            if not sync:
+                continue
+            # a discarded non-finite step still reports loss = NaN: keep it
+            # out of the moving average
+            if metrics.get("finite", 1.0):
+                ema_loss = (0.4 * metrics["loss"] + 0.6 * ema_loss if it > 1
+                            else metrics["loss"])
+            ms_it = (time.time() - t_sync) * 1000 / max(it - last_sync_it, 1)
+            t_sync, last_sync_it = time.time(), it
+            if not args.quiet:
+                print(f"[{it}/{ocfg.iterations}] loss={ema_loss:.5f} "
+                      f"psnr={metrics['psnr']:.2f} "
+                      f"pts={int(metrics['num_active'])} ({ms_it:.0f} ms/it)")
+            # the log rides the existing sync points, about every 50
+            # iterations
+            if it - last_logged_it >= 50 or it >= ocfg.iterations:
+                logf.write(json.dumps({"iteration": it, **metrics,
+                                       "elapsed_s": time.time() - t_start})
+                           + "\n")
+                logf.flush()
+                last_logged_it = it
+
+            if it in args.test_iterations:
+                _report(trainer, scene, it)
+            if it in args.save_iterations:
+                print(f"\n[ITER {it}] Saving Gaussians")
+                ckpt.save_scene_ply(mcfg.model_path, it, trainer.ts.params,
+                                    trainer.ts.gstate)
+                if mcfg.speedup and trainer.ts.decoder is not None:
+                    ckpt.save_decoder_checkpoint(mcfg.model_path, it,
+                                                 trainer.ts.decoder)
+            if it in args.checkpoint_iterations:
+                # full checkpoints come after the iteration's densification
+                # in the original (train.py:151-153 follow :129-140); the
+                # PLY above comes before it (:121-126)
+                trainer.flush_maintenance()
+                print(f"\n[ITER {it}] Saving Checkpoint")
+                ckpt.save_checkpoint(mcfg.model_path, it, trainer.ts)
+
+    if stop["sig"] is not None:
+        return 0
+    print("\nTraining complete.")
+    return 0
+
+
+def _start_profile():
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profile(prof, out_dir: str, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.__exit__(None, None, None)
+    os.makedirs(out_dir, exist_ok=True)
+    sort_by = ("cuda_time_total" if device.type == "cuda"
+               else "cpu_time_total")
+    with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by=sort_by, row_limit=40))
+    prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
+    print(f"profiler trace (~iterations 20-30) -> {out_dir}")
+
+
+@torch.no_grad()
+def _report(trainer, scene, iteration: int):
+    """The original training_report (train.py:203-239), to stdout: L1 and
+    PSNR on the test cameras and on 5 fixed train cameras."""
+    from feature3dgs_tpu_torch.render import renderer
+    from feature3dgs_tpu_torch.train import losses as L
+    params, gstate = trainer.ts.params, trainer.ts.gstate
+    train_loaded = [c for c in scene.train_cameras if c.image is not None]
+    configs = [("test", [c for c in scene.test_cameras
+                         if c.image is not None]),
+               ("train", [train_loaded[i % len(train_loaded)]
+                          for i in range(5, 30, 5)] if train_loaded else [])]
+    for name, cams in configs:
+        if not cams:
+            continue
+        totals = torch.zeros(2, device=trainer.device)
+        for cam in cams:
+            out = renderer.render(params, gstate, cam.to_view(trainer.device),
+                                  bg=trainer.bg, config=trainer.rcfg)
+            img = torch.clamp(out.color, 0, 1)
+            gt = torch.clamp(torch.as_tensor(
+                cam.image, dtype=torch.float32, device=trainer.device), 0, 1)
+            totals += torch.stack([L.l1_loss(img, gt), L.psnr(img, gt)])
+        l1, psnr = (totals / len(cams)).tolist()
+        print(f"\n[ITER {iteration}] Evaluating {name}: "
+              f"L1 {l1:.5f} PSNR {psnr:.2f}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

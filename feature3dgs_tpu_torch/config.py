@@ -1,12 +1,14 @@
-"""Command-line flags and ``cfg_args`` merging for the render CLI.
+"""Command-line flags and ``cfg_args`` merging for the train and render
+CLIs.
 
-Port of the part of ``feature3dgs_tpu/config.py`` that rendering uses: the
-model, pipeline and rasterizer flag groups with the same names, shorthands
-and defaults, and ``combine_with_saved``, which fills flags left at their
-defaults from ``<model_path>/cfg_args`` — the JSON the JAX trainer writes,
-or the original code's repr'd ``Namespace(...)``. Keys of ``cfg_args`` that
-no flag here names (optimizer settings, TPU-only rasterizer settings) are
-ignored.
+Port of ``feature3dgs_tpu/config.py``: the model, pipeline, optimization
+and rasterizer flag groups with the same names, shorthands and defaults,
+and ``combine_with_saved``, which fills flags left at their defaults from
+``<model_path>/cfg_args`` — the JSON either trainer writes, or the original
+code's repr'd ``Namespace(...)``. Keys of ``cfg_args`` that no flag here
+names (TPU-only rasterizer settings) are ignored. ``--alpha_matmul`` is this
+package's own flag: it switches both compositing kernels to their
+alpha_matmul mode (``RasterConfig.alpha_matmul``).
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ import os
 import re
 from typing import Any
 
+from feature3dgs_tpu_torch.model.optim import LRConfig
 from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
+from feature3dgs_tpu_torch.train.trainer import OptimizationConfig
 
 
 @dataclasses.dataclass
@@ -34,6 +38,17 @@ class ModelConfig:
     white_background: bool = False  # -w
     eval: bool = False
     speedup: bool = False
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    """PipelineParams (the original arguments/__init__.py:67-72). The flags
+    are accepted and recorded; this package has one formulation of each
+    stage, so they select nothing."""
+
+    convert_SHs_python: bool = False
+    compute_cov3D_python: bool = False
+    debug: bool = False
 
 
 def add_model_args(parser: argparse.ArgumentParser):
@@ -52,12 +67,33 @@ def add_model_args(parser: argparse.ArgumentParser):
 
 
 def add_pipeline_args(parser: argparse.ArgumentParser):
-    """The original pipeline flags; rendering reads none of them, but saved
+    """The original pipeline flags; neither CLI reads them, but saved
     configs and scripts pass them."""
     g = parser.add_argument_group("Pipeline Parameters")
     g.add_argument("--convert_SHs_python", action="store_true")
     g.add_argument("--compute_cov3D_python", action="store_true")
     g.add_argument("--debug", action="store_true")
+
+
+def add_optimization_args(parser: argparse.ArgumentParser):
+    g = parser.add_argument_group("Optimization Parameters")
+    o, lr = OptimizationConfig(), LRConfig()
+    g.add_argument("--iterations", type=int, default=o.iterations)
+    for name in ("position_lr_init", "position_lr_final",
+                 "position_lr_delay_mult"):
+        g.add_argument(f"--{name}", type=float, default=getattr(lr, name))
+    g.add_argument("--position_lr_max_steps", type=int,
+                   default=lr.position_lr_max_steps)
+    for name in ("feature_lr", "opacity_lr", "scaling_lr", "rotation_lr",
+                 "semantic_feature_lr"):
+        g.add_argument(f"--{name}", type=float, default=getattr(lr, name))
+    g.add_argument("--percent_dense", type=float, default=o.percent_dense)
+    g.add_argument("--lambda_dssim", type=float, default=o.lambda_dssim)
+    for name in ("densification_interval", "opacity_reset_interval",
+                 "densify_from_iter", "densify_until_iter"):
+        g.add_argument(f"--{name}", type=int, default=getattr(o, name))
+    g.add_argument("--densify_grad_threshold", type=float,
+                   default=o.densify_grad_threshold)
 
 
 def add_raster_args(parser: argparse.ArgumentParser):
@@ -71,6 +107,10 @@ def add_raster_args(parser: argparse.ArgumentParser):
     g.add_argument("--instance_capacity", type=int, default=r.instance_capacity)
     # scripts/render.py's flag; rendering here never truncates a tile list
     g.add_argument("--tile_capacity", type=int, default=1 << 12)
+    g.add_argument("--alpha_matmul", action="store_true",
+                   help="evaluate the Gaussian exponent as a six-term dot "
+                        "over tile-local monomials in both kernels "
+                        "(RasterConfig.alpha_matmul)")
 
 
 def extract_model(args) -> ModelConfig:
@@ -83,11 +123,32 @@ def extract_model(args) -> ModelConfig:
         speedup=args.speedup)
 
 
+def extract_pipeline(args) -> PipelineConfig:
+    return PipelineConfig(convert_SHs_python=args.convert_SHs_python,
+                          compute_cov3D_python=args.compute_cov3D_python,
+                          debug=args.debug)
+
+
+def extract_optimization(args) -> OptimizationConfig:
+    lr_names = [f.name for f in dataclasses.fields(LRConfig)
+                if f.name != "position_lr_delay_steps"]
+    return OptimizationConfig(
+        iterations=args.iterations,
+        lr=LRConfig(**{k: getattr(args, k) for k in lr_names}),
+        percent_dense=args.percent_dense, lambda_dssim=args.lambda_dssim,
+        densification_interval=args.densification_interval,
+        opacity_reset_interval=args.opacity_reset_interval,
+        densify_from_iter=args.densify_from_iter,
+        densify_until_iter=args.densify_until_iter,
+        densify_grad_threshold=args.densify_grad_threshold)
+
+
 def extract_raster(args) -> RasterConfig:
     tile_size = getattr(args, "tile_size", None)
     return RasterConfig(
         tile_w=tile_size or args.tile_w, tile_h=tile_size or args.tile_h,
-        chunk=args.chunk, instance_capacity=args.instance_capacity)
+        chunk=args.chunk, instance_capacity=args.instance_capacity,
+        alpha_matmul=bool(getattr(args, "alpha_matmul", False)))
 
 
 def parse_saved_namespace(text: str) -> dict:

@@ -1,0 +1,92 @@
+"""Small synthetic scenes for tests and smoke checks.
+
+``synthetic_scene`` (in memory, no files) is a copy of
+``feature3dgs_tpu/data/synthetic.py``: the same numpy draws in the same
+order, so both packages build the same scene from one seed.
+``write_blender_scene`` writes a Blender-style scene folder that
+``load_scene`` and the CLIs read.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+
+import numpy as np
+
+from feature3dgs_tpu_torch.data.cameras import Camera
+from feature3dgs_tpu_torch.data.dataset import SceneData
+
+
+def synthetic_scene(n_cams=6, w=64, h=48, n_pts=256, f_dim=8, seed=0
+                    ) -> SceneData:
+    """Cameras fanned around the origin looking at a random point cloud,
+    with random ground-truth images and half-resolution feature maps."""
+    rng = np.random.RandomState(seed)
+    pts = rng.uniform(-1.5, 1.5, (n_pts, 3)).astype(np.float32)
+    cols = rng.rand(n_pts, 3).astype(np.float32)
+    cams = []
+    for i in range(n_cams):
+        ang = 0.15 * (i - n_cams / 2)
+        rot = np.array([[math.cos(ang), 0, math.sin(ang)],
+                        [0, 1, 0],
+                        [-math.sin(ang), 0, math.cos(ang)]], np.float32)
+        cams.append(Camera(
+            uid=i, colmap_id=i, R=rot, T=np.array([0.0, 0.0, 4.0], np.float32),
+            fovx=1.0, fovy=0.8,
+            image=rng.rand(h, w, 3).astype(np.float32),
+            image_name=f"synth_{i}",
+            semantic_feature=rng.randn(h // 2, w // 2, f_dim).astype(
+                np.float32) * 0.1,
+            width=w, height=h))
+    return SceneData(train_cameras=cams, test_cameras=[], points=pts,
+                     colors=cols, nerf_norm={"radius": 4.0},
+                     feature_dim=f_dim, source_path="<synthetic>")
+
+
+def write_blender_scene(path: str, *, n_frames: int = 4, size: int = 128,
+                        f_dim: int = 16, n_pts: int = 2000, seed: int = 0,
+                        feature_dir: str = "rgb_feature_langseg") -> str:
+    """Write a Blender-style scene into ``path``: ``transforms_train.json``
+    (cameras on a circle of radius 4 looking at the origin),
+    ``train/r_i.png`` (a smooth colour pattern per frame), CHW float32
+    teacher maps ``<feature_dir>/r_i_fmap_CxHxW.npy`` at half resolution
+    and a ``points3d.ply`` of ``n_pts`` random points in [-1.3, 1.3]^3.
+    Returns ``path``."""
+    from PIL import Image
+
+    from feature3dgs_tpu_torch.data.ply import write_ply
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(path, "train"), exist_ok=True)
+    os.makedirs(os.path.join(path, feature_dir), exist_ok=True)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    frames = []
+    for i in range(n_frames):
+        ang = 2.0 * math.pi * i / n_frames
+        # OpenGL camera-to-world: the camera sits on the circle, its -z axis
+        # points at the origin, +y is up
+        eye = np.array([4.0 * math.sin(ang), 0.0, 4.0 * math.cos(ang)])
+        z = eye / np.linalg.norm(eye)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        c2w = np.eye(4)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x, np.cross(z, x), z, eye
+        frames.append({"file_path": f"train/r_{i}",
+                       "transform_matrix": c2w.tolist()})
+        img = np.stack([0.5 + 0.5 * np.sin(6.0 * xx + i),
+                        0.5 + 0.5 * np.cos(5.0 * yy - i), xx * yy], -1)
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            os.path.join(path, "train", f"r_{i}.png"))
+        np.save(os.path.join(path, feature_dir, f"r_{i}_fmap_CxHxW.npy"),
+                (rng.randn(f_dim, size // 2, size // 2) * 0.1).astype(
+                    np.float32))
+    with open(os.path.join(path, "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+    xyz = rng.uniform(-1.3, 1.3, (n_pts, 3)).astype(np.float32)
+    rgb = (rng.rand(n_pts, 3) * 255).astype(np.uint8)
+    zeros = np.zeros(n_pts, np.float32)
+    write_ply(os.path.join(path, "points3d.ply"), {
+        "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+        "nx": zeros, "ny": zeros, "nz": zeros,
+        "red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2]})
+    return path

@@ -84,8 +84,16 @@ def get_rotation(p: GaussianParams) -> torch.Tensor:
     return p.rotation * torch.rsqrt(torch.clamp_min(sq, 1e-24))
 
 
-def get_opacity(p: GaussianParams) -> torch.Tensor:
-    return torch.sigmoid(p.opacity[:, 0])
+def get_opacity(p: GaussianParams, alive: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    op = torch.sigmoid(p.opacity[:, 0])
+    if alive is not None:
+        op = torch.where(alive, op, torch.zeros_like(op))
+    return op
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1 - x))
 
 
 def get_features(p: GaussianParams) -> torch.Tensor:
@@ -99,7 +107,8 @@ def get_semantic(p: GaussianParams) -> torch.Tensor:
 
 
 def create_from_pcd(points: np.ndarray, colors: np.ndarray, *,
-                    knn_mean_dists: np.ndarray, max_sh_degree: int = 3,
+                    knn_mean_dists: np.ndarray | None = None,
+                    max_sh_degree: int = 3,
                     feature_dim: int = 128, speedup: bool = False,
                     capacity: int | None = None, device=None
                     ) -> tuple[GaussianParams, GaussianState]:
@@ -107,8 +116,8 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray, *,
     log sqrt(mean squared 3-NN distance, clamped at 1e-7), identity
     quaternions, opacity inverse_sigmoid(0.1), SH DC from RGB with higher
     bands zero, zero semantic features (F/4 of them under the speed-up
-    decoder). ``knn_mean_dists`` is required in this slice. Tensors land on
-    ``default_device(device)``."""
+    decoder). ``knn_mean_dists`` defaults to ``ops.knn.mean_sq_dist_3nn`` of
+    the points. Tensors land on ``default_device(device)``."""
     device = default_device(device)
     n = points.shape[0]
     capacity = n if capacity is None else capacity
@@ -117,6 +126,9 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray, *,
     if speedup:
         feature_dim = feature_dim // 4
     m = num_sh_coeffs(max_sh_degree)
+    if knn_mean_dists is None:
+        from feature3dgs_tpu_torch.ops.knn import mean_sq_dist_3nn
+        knn_mean_dists = mean_sq_dist_3nn(points)
     dist2 = np.maximum(np.asarray(knn_mean_dists), 1e-7)
 
     def pad(x):
@@ -139,3 +151,43 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray, *,
     alive = torch.zeros((capacity,), dtype=torch.bool, device=device)
     alive[:n] = True
     return params, GaussianState.fresh(alive)
+
+
+def _pad_rows(x: torch.Tensor, new_capacity: int) -> torch.Tensor:
+    pad = torch.zeros((new_capacity - x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=0)
+
+
+def grow_params(params: GaussianParams, new_capacity: int) -> GaussianParams:
+    """``params`` (or Adam moments of that shape) padded with zero rows to
+    ``new_capacity``; new tensors, the old ones are left alone."""
+    return GaussianParams(**{k: _pad_rows(getattr(params, k), new_capacity)
+                             for k in GaussianParams.FIELDS})
+
+
+def grow_capacity(params: GaussianParams, state: GaussianState,
+                  new_capacity: int, opt_state: GaussianParams | None = None):
+    """Pad every array to a larger capacity (parameters, statistics and
+    Adam moments with zeros, ``alive`` with False). Returns (params, state)
+    or, given one tree of Adam moments, (params, state, opt_state). There is
+    nothing to recompile on this side: growth is a reallocation, and every
+    tensor that aliased the old ones must be taken from the result."""
+    if new_capacity <= params.capacity:
+        return ((params, state) if opt_state is None
+                else (params, state, opt_state))
+    new_state = dataclasses.replace(
+        state, **{k: _pad_rows(getattr(state, k), new_capacity)
+                  for k in ("alive", "max_radii2d", "xyz_gradient_accum",
+                            "denom")})
+    new_params = grow_params(params, new_capacity)
+    if opt_state is None:
+        return new_params, new_state
+    return new_params, new_state, grow_params(opt_state, new_capacity)
+
+
+def one_up_sh_degree(state: GaussianState, max_degree: int) -> GaussianState:
+    """Raise the active SH degree by one, up to ``max_degree``; in place."""
+    if state.active_sh_degree < max_degree:
+        state.active_sh_degree += 1
+    return state

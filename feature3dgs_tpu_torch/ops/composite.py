@@ -22,6 +22,17 @@ the kernel may use its own chunk length.
 The backward (``composite_plain_backward``) walks each tile back to front
 from its deepest contributor and returns one gradient row per list entry,
 as the backward kernel does; ``ops.segment`` sums the rows per Gaussian.
+
+``alpha_matmul=True`` (``RasterConfig.alpha_matmul``; the ``alpha_mm`` mode
+of the TPU kernels, pallas_raster.py:167-189) evaluates the exponent as the
+dot product of six per-splat coefficients with the pixel's monomials
+(1, x, y, x^2, xy, y^2) in tile-local coordinates, and the backward's five
+geometric sums as six sums of dL/dpower * monomial followed by a per-entry
+chain rule. Same math, other rounding: power moves by ~1e-6, so a marginal
+splat can flip and ``n_contrib`` may differ by one on isolated pixels. The
+dot runs in the fixed order ((((c0 + c1 x) + c2 y) + c3 x^2) + c4 xy) +
+c5 y^2 with separately rounded products and sums, which is also the order
+and rounding of the CUDA kernels' alpha mode.
 """
 from __future__ import annotations
 
@@ -69,10 +80,41 @@ def tile_pixel_coords(grid: TileGrid, n_tiles: int, tile_base: int = 0,
     return torch.stack([px, py], dim=-1).to(torch.float32)
 
 
+def tile_monomials(grid: TileGrid, device=None) -> torch.Tensor:
+    """[6, P] monomials (1, x, y, x^2, xy, y^2) of the tile-local pixel
+    coordinates (small integers: every entry is exact in f32)."""
+    lane = torch.arange(grid.pixels_per_tile, device=device)
+    x = (lane % grid.tile_w).to(torch.float32)
+    y = (lane // grid.tile_w).to(torch.float32)
+    return torch.stack([torch.ones_like(x), x, y, x * x, x * y, y * y])
+
+
+def _alpha_coeff(g_xy, g_conic, origin):
+    """Coefficients of power over the tile-local monomials, each [tb,K,1],
+    and the tile-local splat position (xl, yl). Tile-local coordinates keep
+    every term of the order of (distance / sigma)^2, which bounds the f32
+    cancellation the regrouped sum exposes."""
+    xl = g_xy[..., 0:1] - origin[:, None, 0:1]
+    yl = g_xy[..., 1:2] - origin[:, None, 1:2]
+    ca, cb, cc = (g_conic[..., i:i + 1] for i in range(3))
+    c0 = -0.5 * (ca * xl * xl + cc * yl * yl) - cb * xl * yl
+    c1 = ca * xl + cb * yl
+    c2 = cc * yl + cb * xl
+    return (c0, c1, c2, -0.5 * ca, -cb, -0.5 * cc), xl, yl
+
+
+def _alpha_power(coeff, mono):
+    """[tb,K,P] power = coeff . mono in the fixed order of the kernels."""
+    power = coeff[0] + coeff[1] * mono[1]
+    for c in range(2, 6):
+        power = power + coeff[c] * mono[c]
+    return power
+
+
 def composite_plain(xy, conic, opacity, rgb, depth, feat, gid_sorted,
                     tile_starts, tile_counts, grid: TileGrid, *, chunk: int,
-                    tile_base: int = 0, stats: dict | None = None
-                    ) -> CompositeOutput:
+                    tile_base: int = 0, alpha_matmul: bool = False,
+                    stats: dict | None = None) -> CompositeOutput:
     """Composite every tile of ``tile_starts``/``tile_counts`` (tile t is
     global tile ``tile_base + t``). Per-Gaussian inputs: xy [N,2],
     conic [N,3], opacity [N], rgb [N,3], depth [N], feat [N,F].
@@ -102,6 +144,8 @@ def composite_plain(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     starts = tile_starts.long()
     gid = gid_sorted.long()
     pix = tile_pixel_coords(grid, n_tiles, tile_base, dev)
+    # alpha_matmul: each tile's origin is its first pixel
+    local = (pix[:, 0], tile_monomials(grid, dev)) if alpha_matmul else None
     step = max(1, _BATCH_ELEMS // (chunk * p))
     for t0 in range(0, n_tiles, step):
         t1 = min(t0 + step, n_tiles)
@@ -110,14 +154,18 @@ def composite_plain(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             continue
         out = _composite_tiles(
             xy, conic, opacity, rgb, depth, feat, gid, starts[t0:t1],
-            counts[t0:t1], pix[t0:t1], chunk, longest, stats)
+            counts[t0:t1], pix[t0:t1], chunk, longest, stats,
+            None if local is None else (local[0][t0:t1], local[1]))
         (color[t0:t1], feature[t0:t1], depth_out[t0:t1], final_t[t0:t1],
          n_contrib[t0:t1]) = out
     return CompositeOutput(color, feature, depth_out, final_t, n_contrib)
 
 
 def _composite_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
-                     counts, pix, chunk: int, longest: int, stats):
+                     counts, pix, chunk: int, longest: int, stats,
+                     local=None):
+    """``local`` = (tile origins [tb,2], monomials [6,P]) selects the
+    alpha_matmul evaluation of power."""
     tb, p = pix.shape[0], pix.shape[1]
     dev = xy.device
     px = pix[:, None, :, 0]                              # [tb,1,P]
@@ -137,10 +185,14 @@ def _composite_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
                            torch.zeros_like(starts)[:, None])
         ids = torch.where(in_list, gid[slot], torch.zeros_like(slot))
         g_xy, g_conic = xy[ids], conic[ids]              # [tb,K,2], [tb,K,3]
-        dx = g_xy[..., 0:1] - px                         # [tb,K,P]
-        dy = g_xy[..., 1:2] - py
-        ca, cb, cc = (g_conic[..., i:i + 1] for i in range(3))
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        if local is not None:
+            power = _alpha_power(_alpha_coeff(g_xy, g_conic, local[0])[0],
+                                 local[1])
+        else:
+            dx = g_xy[..., 0:1] - px                     # [tb,K,P]
+            dy = g_xy[..., 1:2] - py
+            ca, cb, cc = (g_conic[..., i:i + 1] for i in range(3))
+            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
         alpha_raw = torch.clamp_max(opacity[ids][..., None] * torch.exp(power),
                                     ALPHA_MAX)
         ok = (power <= 0.0) & (alpha_raw >= ALPHA_MIN) & in_list[..., None]
@@ -185,6 +237,7 @@ def composite_plain_backward(xy, conic, opacity, rgb, depth, feat, gid_sorted,
                              g_color, g_feat, g_depth, g_final_t, final_t,
                              n_contrib, *, chunk: int,
                              feature_alpha_grad: bool = False,
+                             alpha_matmul: bool = False,
                              stats: dict | None = None) -> BackwardRows:
     """Gradient rows of ``composite_plain`` (one per list entry), given the
     forward's inputs, the pixel cotangents g_color [T,P,3], g_feat [T,P,F],
@@ -216,6 +269,7 @@ def composite_plain_backward(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     # the walk stops at each tile's deepest contributor
     depth_walk = torch.minimum(n_contrib.long().amax(1), counts)
     pix = tile_pixel_coords(grid, n_tiles, device=dev)
+    local = (pix[:, 0], tile_monomials(grid, dev)) if alpha_matmul else None
     step = max(1, _BATCH_ELEMS // (chunk * p))
     for t0 in range(0, n_tiles, step):
         t1 = min(t0 + step, n_tiles)
@@ -227,14 +281,15 @@ def composite_plain_backward(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             depth_walk[t0:t1], pix[t0:t1], g_color[t0:t1], g_feat[t0:t1],
             g_depth[t0:t1], g_final_t[t0:t1], final_t[t0:t1],
             n_contrib[t0:t1].long(), chunk, longest, feature_alpha_grad,
-            geom, feature, stats)
+            geom, feature, stats,
+            None if local is None else (local[0][t0:t1], local[1]))
     return BackwardRows(geom, feature)
 
 
 def _backward_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
                     walk, pix, g_color, g_feat, g_depth, g_final_t, final_t,
                     ncon, chunk: int, longest: int, fag: bool, geom, feature,
-                    stats):
+                    stats, local=None):
     dev = xy.device
     px = pix[:, None, :, 0]                              # [tb,1,P]
     py = pix[:, None, :, 1]
@@ -254,10 +309,14 @@ def _backward_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
         ids = torch.where(walked, gid[slot], torch.zeros_like(slot))
         g_xy, g_conic = xy[ids], conic[ids]
         g_op = opacity[ids][..., None]                   # [tb,K,1]
-        dx = g_xy[..., 0:1] - px                         # [tb,K,P]
-        dy = g_xy[..., 1:2] - py
         ca, cb, cc = (g_conic[..., i:i + 1] for i in range(3))
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        if local is not None:
+            coeff, xl, yl = _alpha_coeff(g_xy, g_conic, local[0])
+            power = _alpha_power(coeff, local[1])
+        else:
+            dx = g_xy[..., 0:1] - px                     # [tb,K,P]
+            dy = g_xy[..., 1:2] - py
+            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
         gexp = torch.exp(power)
         alpha_raw = torch.clamp_max(g_op * gexp, ALPHA_MAX)
         mask = ((power <= 0.0) & (alpha_raw >= ALPHA_MIN) & walked[..., None]
@@ -278,13 +337,24 @@ def _backward_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
             zero)
         d_op = torch.where(mask, gexp * dl_da, zero)
         d_pow = g_op * d_op
-        rows = torch.stack([
-            torch.sum(-(ca * dx + cb * dy) * d_pow, 2),
-            torch.sum(-(cc * dy + cb * dx) * d_pow, 2),
-            torch.sum(-0.5 * dx * dx * d_pow, 2),
-            torch.sum(-dx * dy * d_pow, 2),
-            torch.sum(-0.5 * dy * dy * d_pow, 2),
-            torch.sum(d_op, 2)], -1)                     # [tb,K,6]
+        if local is not None:
+            # d coeff = dL/dpower . mono^T, then the chain rule from the
+            # coefficients back to x, y and the conic, per entry
+            dc = torch.einsum("tkp,cp->tkc", d_pow, local[1])
+            dc = [dc[..., c:c + 1] for c in range(6)]
+            geo = [dc[0] * -(ca * xl + cb * yl) + dc[1] * ca + dc[2] * cb,
+                   dc[0] * -(cc * yl + cb * xl) + dc[1] * cb + dc[2] * cc,
+                   dc[0] * (-0.5 * xl * xl) + dc[1] * xl - 0.5 * dc[3],
+                   dc[0] * -(xl * yl) + dc[1] * yl + dc[2] * xl - dc[4],
+                   dc[0] * (-0.5 * yl * yl) + dc[2] * yl - 0.5 * dc[5]]
+            geo = [x[..., 0] for x in geo]
+        else:
+            geo = [torch.sum(-(ca * dx + cb * dy) * d_pow, 2),
+                   torch.sum(-(cc * dy + cb * dx) * d_pow, 2),
+                   torch.sum(-0.5 * dx * dx * d_pow, 2),
+                   torch.sum(-dx * dy * d_pow, 2),
+                   torch.sum(-0.5 * dy * dy * d_pow, 2)]
+        rows = torch.stack(geo + [torch.sum(d_op, 2)], -1)   # [tb,K,6]
         rows = torch.cat([rows, torch.einsum("tkp,tpc->tkc", w, g_color),
                           torch.einsum("tkp,tp->tk", w, g_depth)[..., None]],
                          -1)

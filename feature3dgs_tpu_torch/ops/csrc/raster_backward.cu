@@ -46,6 +46,21 @@
 //     w [k x P] . g_feat [P x F], in 4x4 register micro-tiles, with g_feat
 //     staged through shared memory PB pixel rows at a time.
 // No atomics, no fast-math: the same inputs give the same output bits.
+//
+// The alpha_matmul mode (template parameter MM; the TPU kernel's
+// alpha_mm=True path, pallas_raster.py:583, 671-674, 726-741): power comes
+// from the forward's own coefficient dot (raster_common.cuh:alpha_coeff and
+// splat_alpha_mm, so the backward re-decides each pair with the forward's
+// bits in this mode too), and the five geometric sums become six sums of
+// dL/dpower * (1, X, Y, X^2, XY, Y^2) over the tile's pixels (eleven
+// reduced columns instead of ten, same shuffles and warp order), followed
+// by the chain rule from the coefficients back to x, y and the conic, once
+// per entry:
+//   d x = dc0 (-(a xl + b yl)) + dc1 a + dc2 b
+//   d y = dc0 (-(c yl + b xl)) + dc1 b + dc2 c
+//   d a = dc0 (-0.5 xl^2) + dc1 xl - 0.5 dc3
+//   d b = dc0 (-xl yl) + dc1 yl + dc2 xl - dc4
+//   d c = dc0 (-0.5 yl^2) + dc2 yl - 0.5 dc5
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,20 +74,33 @@ using f3dgs::pad4;
 constexpr int CHUNK = 32;
 constexpr int N_GEOM = 10;  // x, y, conic a/b/c, opacity, r, g, b, depth
 constexpr int N_ROW = 10;   // d x, y, conic a/b/c, opacity, r, g, b, depth
+constexpr int N_COEFF = 6;  // alpha_matmul mode: c0..c5 after the N_GEOM rows
+// alpha_matmul mode: xl, yl after the coefficients; reduced columns are
+// dc0..dc5, d opacity, d r, g, b, depth
+constexpr int N_GEOM_MM = N_GEOM + N_COEFF + 2;
+constexpr int N_PART_MM = N_ROW + 1;
 constexpr int WARP = 32;
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_WARPS = MAX_THREADS / WARP;
 constexpr int PB = 16;  // g_feat pixel rows staged per step of the product
 constexpr unsigned FULL = 0xffffffffu;
 
+__host__ __device__ inline int geom_rows(bool mm) {
+  return mm ? N_GEOM_MM : N_GEOM;
+}
+__host__ __device__ inline int part_cols(bool mm) {
+  return mm ? N_PART_MM : N_ROW;
+}
+
 // Shared memory: int gid[CHUNK], idx[CHUNK], flag[CHUNK], nact (+3 pad),
-// red[MAX_WARPS]; float geom[N_GEOM][CHUNK]; float part[warps][CHUNK][N_ROW];
-// float w[CHUNK][P]; float g[PB][pad4(F)].
+// red[MAX_WARPS]; float geom[geom_rows][CHUNK];
+// float part[warps][CHUNK][part_cols]; float w[CHUNK][P];
+// float g[PB][pad4(F)].
 constexpr int INT_WORDS = 3 * CHUNK + 4 + MAX_WARPS;
-__host__ __device__ inline size_t smem_bytes(int p, int f) {
+__host__ __device__ inline size_t smem_bytes(int p, int f, bool mm) {
   return sizeof(int) * INT_WORDS
-         + sizeof(float) * ((size_t)N_GEOM * CHUNK
-                            + (size_t)(p / WARP) * CHUNK * N_ROW
+         + sizeof(float) * ((size_t)geom_rows(mm) * CHUNK
+                            + (size_t)(p / WARP) * CHUNK * part_cols(mm)
                             + (size_t)CHUNK * p + (size_t)PB * pad4(f));
 }
 
@@ -146,6 +174,7 @@ __device__ void feature_rows(float* __restrict__ d_feat_chunk,
   }
 }
 
+template <bool MM>
 __global__ void __launch_bounds__(MAX_THREADS)
 raster_backward_kernel(const float* __restrict__ xy,
                        const float* __restrict__ conic,
@@ -174,8 +203,9 @@ raster_backward_kernel(const float* __restrict__ xy,
   float* s_geom = reinterpret_cast<float*>(s_gid + INT_WORDS);
   const int p_pix = tile_w * tile_h;
   const int n_warps = p_pix / WARP;
-  float* s_part = s_geom + N_GEOM * CHUNK;
-  float* s_w = s_part + (size_t)n_warps * CHUNK * N_ROW;
+  constexpr int N_PART = MM ? N_PART_MM : N_ROW;
+  float* s_part = s_geom + geom_rows(MM) * CHUNK;
+  float* s_w = s_part + (size_t)n_warps * CHUNK * N_PART;
   float* s_g = s_w + (size_t)CHUNK * p_pix;
 
   const int t = blockIdx.x;
@@ -185,6 +215,11 @@ raster_backward_kernel(const float* __restrict__ xy,
   const int tile_y = t / grid_x;
   const float px = (float)(tile_x * tile_w + lane % tile_w);
   const float py = (float)(tile_y * tile_h + lane / tile_w);
+  // alpha_matmul mode: the tile's first pixel and this pixel's monomials
+  const float ox = (float)(tile_x * tile_w);
+  const float oy = (float)(tile_y * tile_h);
+  const f3dgs::PixelMonomials mono((float)(lane % tile_w),
+                                   (float)(lane / tile_w));
 
   // the caller guarantees that [start, start + count) lies in gid_sorted
   // and holds valid Gaussian ids (the forward's wrapper checked them)
@@ -232,6 +267,17 @@ raster_backward_kernel(const float* __restrict__ xy,
       s_geom[7 * CHUNK + k] = ok ? rgb[3 * g + 1] : 0.f;
       s_geom[8 * CHUNK + k] = ok ? rgb[3 * g + 2] : 0.f;
       s_geom[9 * CHUNK + k] = ok ? depth[g] : 0.f;
+      if constexpr (MM) {
+        float xl, yl, c[N_COEFF];
+        f3dgs::alpha_coeff(s_geom[0 * CHUNK + k], s_geom[1 * CHUNK + k],
+                           s_geom[2 * CHUNK + k], s_geom[3 * CHUNK + k],
+                           s_geom[4 * CHUNK + k], ox, oy, xl, yl, c);
+#pragma unroll
+        for (int j = 0; j < N_COEFF; ++j)
+          s_geom[(N_GEOM + j) * CHUNK + k] = c[j];
+        s_geom[(N_GEOM + N_COEFF) * CHUNK + k] = xl;
+        s_geom[(N_GEOM + N_COEFF + 1) * CHUNK + k] = yl;
+      }
     }
     __syncthreads();
 
@@ -242,13 +288,18 @@ raster_backward_kernel(const float* __restrict__ xy,
       const float cc = s_geom[4 * CHUNK + k];
       const float op = s_geom[5 * CHUNK + k];
       float dx, dy, gexp, alpha;
-      const bool m = f3dgs::splat_alpha(s_geom[0 * CHUNK + k],
-                                        s_geom[1 * CHUNK + k], ca, cb, cc, op,
-                                        px, py, dx, dy, gexp, alpha)
-                     && base + k < ncon;
-      float v[N_ROW];
+      bool m;
+      if constexpr (MM) {
+        m = f3dgs::splat_alpha_mm(s_geom + N_GEOM * CHUNK, CHUNK, k, op, mono,
+                                  gexp, alpha);
+      } else {
+        m = f3dgs::splat_alpha(s_geom[0 * CHUNK + k], s_geom[1 * CHUNK + k],
+                               ca, cb, cc, op, px, py, dx, dy, gexp, alpha);
+      }
+      m = m && base + k < ncon;
+      float v[N_PART];
 #pragma unroll
-      for (int c = 0; c < N_ROW; ++c) v[c] = 0.f;
+      for (int c = 0; c < N_PART; ++c) v[c] = 0.f;
       float w = 0.f;
       if (m) {
         rc += log1pf(-alpha);
@@ -264,27 +315,36 @@ raster_backward_kernel(const float* __restrict__ xy,
         suffix += w * u;
         const float d_op = gexp * dl_da;
         const float d_pow = op * d_op;
-        v[0] = -(ca * dx + cb * dy) * d_pow;
-        v[1] = -(cc * dy + cb * dx) * d_pow;
-        v[2] = -0.5f * dx * dx * d_pow;
-        v[3] = -dx * dy * d_pow;
-        v[4] = -0.5f * dy * dy * d_pow;
-        v[5] = d_op;
-        v[6] = w * gr;
-        v[7] = w * gg;
-        v[8] = w * gb;
-        v[9] = w * gd;
+        if constexpr (MM) {
+          v[0] = d_pow;
+          v[1] = d_pow * mono.x;
+          v[2] = d_pow * mono.y;
+          v[3] = d_pow * mono.xx;
+          v[4] = d_pow * mono.xy;
+          v[5] = d_pow * mono.yy;
+        } else {
+          v[0] = -(ca * dx + cb * dy) * d_pow;
+          v[1] = -(cc * dy + cb * dx) * d_pow;
+          v[2] = -0.5f * dx * dx * d_pow;
+          v[3] = -dx * dy * d_pow;
+          v[4] = -0.5f * dy * dy * d_pow;
+        }
+        v[N_PART - 5] = d_op;
+        v[N_PART - 4] = w * gr;
+        v[N_PART - 3] = w * gg;
+        v[N_PART - 2] = w * gb;
+        v[N_PART - 1] = w * gd;
         s_flag[k] = 1;
       }
       s_w[(size_t)k * p_pix + lane] = w;
-      float* part = s_part + ((size_t)warp * CHUNK + k) * N_ROW;
+      float* part = s_part + ((size_t)warp * CHUNK + k) * N_PART;
       if (__any_sync(FULL, m)) {
 #pragma unroll
-        for (int c = 0; c < N_ROW; ++c) {
+        for (int c = 0; c < N_PART; ++c) {
           const float s = warp_sum(v[c]);
           if (lane % WARP == 0) part[c] = s;
         }
-      } else if (lane % WARP < N_ROW) {
+      } else if (lane % WARP < N_PART) {
         part[lane % WARP] = 0.f;
       }
     }
@@ -293,13 +353,44 @@ raster_backward_kernel(const float* __restrict__ xy,
 
     // per-entry sums across warps, in warp order
     float* geom_chunk = d_geom + (size_t)(start + base) * N_ROW;
-    for (int e = lane; e < kn * N_ROW; e += blockDim.x) {
-      const int k = e / N_ROW;
-      const int c = e - k * N_ROW;
-      float s = 0.f;
-      for (int wp = 0; wp < n_warps; ++wp)
-        s += s_part[((size_t)wp * CHUNK + k) * N_ROW + c];
-      geom_chunk[e] = s;
+    if constexpr (MM) {
+      // each (entry, column) sum lands in warp 0's slot, which only the
+      // thread that summed it has read
+      for (int e = lane; e < kn * N_PART; e += blockDim.x) {
+        const int k = e / N_PART;
+        const int c = e - k * N_PART;
+        float s = 0.f;
+        for (int wp = 0; wp < n_warps; ++wp)
+          s += s_part[((size_t)wp * CHUNK + k) * N_PART + c];
+        s_part[(size_t)k * N_PART + c] = s;
+      }
+      __syncthreads();
+      // the chain rule from the coefficients to x, y and the conic
+      for (int k = lane; k < kn; k += blockDim.x) {
+        const float* dc = s_part + (size_t)k * N_PART;
+        const float ca = s_geom[2 * CHUNK + k];
+        const float cb = s_geom[3 * CHUNK + k];
+        const float cc = s_geom[4 * CHUNK + k];
+        const float xl = s_geom[(N_GEOM + N_COEFF) * CHUNK + k];
+        const float yl = s_geom[(N_GEOM + N_COEFF + 1) * CHUNK + k];
+        float* row = geom_chunk + (size_t)k * N_ROW;
+        row[0] = dc[0] * -(ca * xl + cb * yl) + dc[1] * ca + dc[2] * cb;
+        row[1] = dc[0] * -(cc * yl + cb * xl) + dc[1] * cb + dc[2] * cc;
+        row[2] = dc[0] * (-0.5f * xl * xl) + dc[1] * xl - 0.5f * dc[3];
+        row[3] = dc[0] * -(xl * yl) + dc[1] * yl + dc[2] * xl - dc[4];
+        row[4] = dc[0] * (-0.5f * yl * yl) + dc[2] * yl - 0.5f * dc[5];
+#pragma unroll
+        for (int c = 5; c < N_ROW; ++c) row[c] = dc[c + 1];
+      }
+    } else {
+      for (int e = lane; e < kn * N_ROW; e += blockDim.x) {
+        const int k = e / N_ROW;
+        const int c = e - k * N_ROW;
+        float s = 0.f;
+        for (int wp = 0; wp < n_warps; ++wp)
+          s += s_part[((size_t)wp * CHUNK + k) * N_ROW + c];
+        geom_chunk[e] = s;
+      }
     }
     if (f_dim == 0) continue;
 
@@ -327,8 +418,8 @@ extern "C" {
 
 int f3dgs_raster_backward_chunk() { return CHUNK; }
 
-size_t f3dgs_raster_backward_smem_bytes(int p_pix, int f_dim) {
-  return smem_bytes(p_pix, f_dim);
+size_t f3dgs_raster_backward_smem_bytes(int p_pix, int f_dim, int alpha_mm) {
+  return smem_bytes(p_pix, f_dim, alpha_mm != 0);
 }
 
 const char* f3dgs_error_string(int code) {
@@ -338,7 +429,8 @@ const char* f3dgs_error_string(int code) {
 // Launches on `stream` and returns cudaGetLastError() (0 = launched). The
 // caller guarantees that every tile's list lies in gid_sorted and holds
 // valid Gaussian ids; rows of gid_sorted that no tile's list covers are
-// left unwritten.
+// left unwritten. alpha_mm != 0 selects the alpha_matmul mode, which must
+// be the mode of the forward that produced final_t and n_contrib.
 int f3dgs_raster_backward(const float* xy, const float* conic,
                           const float* opacity, const float* rgb,
                           const float* depth, const float* feat,
@@ -348,19 +440,21 @@ int f3dgs_raster_backward(const float* xy, const float* conic,
                           const float* g_final_t, const float* final_t,
                           const int* n_contrib, int n_tiles, int grid_x,
                           int tile_w, int tile_h, int f_dim, int fag,
-                          float* d_geom, float* d_feat, void* stream) {
+                          int alpha_mm, float* d_geom, float* d_feat,
+                          void* stream) {
   const int p_pix = tile_w * tile_h;
   if (p_pix <= 0 || p_pix > MAX_THREADS || p_pix % WARP != 0 || f_dim < 0 ||
       grid_x <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
-  const size_t smem = smem_bytes(p_pix, f_dim);
+  const bool mm = alpha_mm != 0;
+  const size_t smem = smem_bytes(p_pix, f_dim, mm);
+  auto kernel =
+      mm ? raster_backward_kernel<true> : raster_backward_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      raster_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  raster_backward_kernel<<<n_tiles, p_pix, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_tiles, p_pix, smem, static_cast<cudaStream_t>(stream)>>>(
       xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
       tile_counts, g_color, g_feat, g_depth, g_final_t, final_t, n_contrib,
       grid_x, tile_w, tile_h, f_dim, fag, d_geom, d_feat);

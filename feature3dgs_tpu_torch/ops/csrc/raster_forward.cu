@@ -46,6 +46,17 @@
 //     hold the running sum between chunks: one thread per pixel cannot hold
 //     F accumulators in registers.
 // No atomics, no fast-math: the same inputs give the same output bits.
+//
+// The alpha_matmul mode (template parameter MM; the TPU kernel's
+// alpha_mm=True path, pallas_raster.py:246, 302-304) differs only in how
+// power is evaluated: the thread that stages entry k also turns it into six
+// coefficients over the tile-local monomials (raster_common.cuh:
+// alpha_coeff), kept in six more rows of the staged scalars, and each pixel
+// thread holds its five monomials in registers and takes the six-term dot
+// (splat_alpha_mm: 6 broadcast shared-memory reads, 5 products, 5 sums a
+// pair, against 2 differences, 7 products and 2 sums of the exact path).
+// CUDA-core f32: the dot's inner dimension is 6, and a tensor-core product
+// (TF32) would move power by far more than the mode's ~3e-6 contract.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,14 +70,19 @@ using f3dgs::T_EPS;
 
 constexpr int CHUNK = 32;
 constexpr int N_GEOM = 10;  // x, y, conic a/b/c, opacity, r, g, b, depth
+constexpr int N_COEFF = 6;  // alpha_matmul mode: c0..c5 after the N_GEOM rows
 constexpr int MAX_THREADS = 1024;
 
+__host__ __device__ inline int geom_rows(bool mm) {
+  return mm ? N_GEOM + N_COEFF : N_GEOM;
+}
+
 // Shared memory: int gid[CHUNK], idx[CHUNK], flag[CHUNK], nact (+3 pad);
-// float geom[N_GEOM][CHUNK]; float w[CHUNK][P]; float feat[CHUNK][pad4(F)].
+// float geom[geom_rows][CHUNK]; float w[CHUNK][P]; float feat[CHUNK][pad4(F)].
 constexpr int INT_WORDS = 3 * CHUNK + 4;
-__host__ __device__ inline size_t smem_bytes(int p, int f) {
+__host__ __device__ inline size_t smem_bytes(int p, int f, bool mm) {
   return sizeof(int) * INT_WORDS
-         + sizeof(float) * ((size_t)N_GEOM * CHUNK + (size_t)CHUNK * p
+         + sizeof(float) * ((size_t)geom_rows(mm) * CHUNK + (size_t)CHUNK * p
                             + (size_t)CHUNK * pad4(f));
 }
 
@@ -118,6 +134,7 @@ __device__ void accumulate_features(float* __restrict__ out,
   }
 }
 
+template <bool MM>
 __global__ void __launch_bounds__(MAX_THREADS)
 raster_forward_kernel(const float* __restrict__ xy,
                       const float* __restrict__ conic,
@@ -141,7 +158,7 @@ raster_forward_kernel(const float* __restrict__ xy,
   int* s_flag = s_idx + CHUNK;
   int* s_nact = s_flag + CHUNK;
   float* s_geom = reinterpret_cast<float*>(s_gid + INT_WORDS);
-  float* s_w = s_geom + N_GEOM * CHUNK;
+  float* s_w = s_geom + geom_rows(MM) * CHUNK;
   const int p_pix = tile_w * tile_h;
   float* s_feat = s_w + (size_t)CHUNK * p_pix;
   const int f_pad = pad4(f_dim);
@@ -153,6 +170,11 @@ raster_forward_kernel(const float* __restrict__ xy,
   const int tile_y = (tg / grid_x) % grid_y;
   const float px = (float)(tile_x * tile_w + lane % tile_w);
   const float py = (float)(tile_y * tile_h + lane / tile_w);
+  // alpha_matmul mode: the tile's first pixel and this pixel's monomials
+  const float ox = (float)(tile_x * tile_w);
+  const float oy = (float)(tile_y * tile_h);
+  const f3dgs::PixelMonomials mono((float)(lane % tile_w),
+                                   (float)(lane / tile_w));
 
   // the wrapper has checked that [start, start + count) lies in gid_sorted
   // and that every id in it names a Gaussian
@@ -190,6 +212,15 @@ raster_forward_kernel(const float* __restrict__ xy,
       s_geom[7 * CHUNK + k] = ok ? rgb[3 * gg + 1] : 0.f;
       s_geom[8 * CHUNK + k] = ok ? rgb[3 * gg + 2] : 0.f;
       s_geom[9 * CHUNK + k] = ok ? depth[gg] : 0.f;
+      if constexpr (MM) {
+        float xl, yl, c[N_COEFF];
+        f3dgs::alpha_coeff(s_geom[0 * CHUNK + k], s_geom[1 * CHUNK + k],
+                           s_geom[2 * CHUNK + k], s_geom[3 * CHUNK + k],
+                           s_geom[4 * CHUNK + k], ox, oy, xl, yl, c);
+#pragma unroll
+        for (int j = 0; j < N_COEFF; ++j)
+          s_geom[(N_GEOM + j) * CHUNK + k] = c[j];
+      }
     }
     __syncthreads();
 
@@ -199,11 +230,21 @@ raster_forward_kernel(const float* __restrict__ xy,
     for (int k = 0; k < kn; ++k) {
       float w = 0.f;
       float dx, dy, gexp, alpha;
-      if (live && f3dgs::splat_alpha(
-                      s_geom[0 * CHUNK + k], s_geom[1 * CHUNK + k],
-                      s_geom[2 * CHUNK + k], s_geom[3 * CHUNK + k],
-                      s_geom[4 * CHUNK + k], s_geom[5 * CHUNK + k], px, py,
-                      dx, dy, gexp, alpha)) {
+      bool counts = false;
+      if (live) {
+        if constexpr (MM) {
+          counts = f3dgs::splat_alpha_mm(s_geom + N_GEOM * CHUNK, CHUNK, k,
+                                         s_geom[5 * CHUNK + k], mono, gexp,
+                                         alpha);
+        } else {
+          counts = f3dgs::splat_alpha(
+              s_geom[0 * CHUNK + k], s_geom[1 * CHUNK + k],
+              s_geom[2 * CHUNK + k], s_geom[3 * CHUNK + k],
+              s_geom[4 * CHUNK + k], s_geom[5 * CHUNK + k], px, py, dx, dy,
+              gexp, alpha);
+        }
+      }
+      if (counts) {
         const float l = log1pf(-alpha);
         const float t_before = __fmul_rn(trans, expf(cum));
         const float t_after = __fmul_rn(t_before, __fsub_rn(1.f, alpha));
@@ -264,8 +305,8 @@ extern "C" {
 
 int f3dgs_raster_forward_chunk() { return CHUNK; }
 
-size_t f3dgs_raster_forward_smem_bytes(int p_pix, int f_dim) {
-  return smem_bytes(p_pix, f_dim);
+size_t f3dgs_raster_forward_smem_bytes(int p_pix, int f_dim, int alpha_mm) {
+  return smem_bytes(p_pix, f_dim, alpha_mm != 0);
 }
 
 const char* f3dgs_error_string(int code) {
@@ -274,14 +315,16 @@ const char* f3dgs_error_string(int code) {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched). The
 // caller guarantees that every tile's list lies in gid_sorted and holds
-// valid Gaussian ids (ops/cuda_raster.py:check_tile_lists).
+// valid Gaussian ids (ops/cuda_raster.py:check_tile_lists). alpha_mm != 0
+// selects the alpha_matmul mode.
 int f3dgs_raster_forward(const float* xy, const float* conic,
                          const float* opacity, const float* rgb,
                          const float* depth, const float* feat,
                          const int* gid_sorted, const int* tile_starts,
                          const int* tile_counts,
                          int n_tiles, int tile_base, int grid_x, int grid_y,
-                         int tile_w, int tile_h, int f_dim, float* out_color,
+                         int tile_w, int tile_h, int f_dim, int alpha_mm,
+                         float* out_color,
                          float* out_feat, float* out_depth, float* out_final_t,
                          int* out_ncontrib, void* stream) {
   const int p_pix = tile_w * tile_h;
@@ -289,13 +332,13 @@ int f3dgs_raster_forward(const float* xy, const float* conic,
       grid_x <= 0 || grid_y <= 0)
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
-  const size_t smem = smem_bytes(p_pix, f_dim);
+  const bool mm = alpha_mm != 0;
+  const size_t smem = smem_bytes(p_pix, f_dim, mm);
+  auto kernel = mm ? raster_forward_kernel<true> : raster_forward_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      raster_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  raster_forward_kernel<<<n_tiles, p_pix, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_tiles, p_pix, smem, static_cast<cudaStream_t>(stream)>>>(
       xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
       tile_counts, tile_base, grid_x, grid_y, tile_w, tile_h, f_dim,
       out_color, out_feat, out_depth, out_final_t, out_ncontrib);

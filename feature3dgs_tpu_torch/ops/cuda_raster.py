@@ -12,8 +12,12 @@ stream.
 ``raster_forward_cuda`` and ``raster_backward_cuda`` launch their kernels on
 CUDA tensors and raise on anything else; ``ops.rasterize`` runs the plain
 versions (``ops.composite.composite_plain`` and
-``composite_plain_backward``) for CPU tensors. ``FORWARD_LAUNCHES`` and
-``BACKWARD_LAUNCHES`` count kernel launches.
+``composite_plain_backward``) for CPU tensors. ``alpha_matmul=True``
+launches each kernel's alpha_matmul instantiation (the TPU kernels'
+``alpha_mm`` mode; see ops/csrc/raster_common.cuh). ``FORWARD_LAUNCHES`` and
+``BACKWARD_LAUNCHES`` count launches of the exact-mode kernels,
+``FORWARD_MM_LAUNCHES`` and ``BACKWARD_MM_LAUNCHES`` those of the
+alpha_matmul mode.
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ KERNEL_CHUNK = 32
 # launches of each kernel since import (or since a caller reset them)
 FORWARD_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+FORWARD_MM_LAUNCHES = 0
+BACKWARD_MM_LAUNCHES = 0
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = {"raster_forward": _CSRC / "raster_forward.cu",
@@ -109,16 +115,16 @@ def _library(name: str):
         if not _libs:
             paths = build()
             p, i = ctypes.c_void_p, ctypes.c_int
-            for lib_name, sig in (("raster_forward", [p] * 9 + [i] * 7 + [p] * 6),
+            for lib_name, sig in (("raster_forward", [p] * 9 + [i] * 8 + [p] * 6),
                                   ("raster_backward",
-                                   [p] * 15 + [i] * 6 + [p] * 3)):
+                                   [p] * 15 + [i] * 7 + [p] * 3)):
                 lib = ctypes.CDLL(str(paths[lib_name]))
                 fn = getattr(lib, f"f3dgs_{lib_name}")
                 fn.argtypes, fn.restype = sig, i
                 chunk = getattr(lib, f"f3dgs_{lib_name}_chunk")
                 chunk.argtypes, chunk.restype = [], i
                 smem = getattr(lib, f"f3dgs_{lib_name}_smem_bytes")
-                smem.argtypes, smem.restype = [i, i], ctypes.c_size_t
+                smem.argtypes, smem.restype = [i, i, i], ctypes.c_size_t
                 lib.f3dgs_error_string.argtypes = [i]
                 lib.f3dgs_error_string.restype = ctypes.c_char_p
                 if chunk() != KERNEL_CHUNK:
@@ -194,8 +200,9 @@ def _check_splats(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     return dev, n, f_dim, n_tiles, grid.pixels_per_tile
 
 
-def _check_smem(lib, name: str, p: int, f_dim: int):
-    smem = getattr(lib, f"f3dgs_{name}_smem_bytes")(p, f_dim)
+def _check_smem(lib, name: str, p: int, f_dim: int, alpha_matmul: bool):
+    smem = getattr(lib, f"f3dgs_{name}_smem_bytes")(p, f_dim,
+                                                    int(alpha_matmul))
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: {f_dim} feature channels at {p}-pixel "
                          f"tiles need {smem} bytes of shared memory "
@@ -210,13 +217,16 @@ def _raise_on(lib, name: str, err: int):
 
 def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
                         tile_starts, tile_counts, grid: TileGrid, *,
-                        tile_base: int = 0) -> CompositeOutput:
+                        tile_base: int = 0, alpha_matmul: bool = False
+                        ) -> CompositeOutput:
     """Composite every tile with the forward kernel. Per-Gaussian inputs
     xy [N,2], conic [N,3], opacity [N], rgb [N,3], depth [N], feat [N,F]
     f32; gid_sorted [L], tile_starts/tile_counts [T] int32, all contiguous
     CUDA tensors (anything else raises). Outputs are in tile layout
-    ([T, P, ...]); tile t is global tile ``tile_base + t``."""
-    global FORWARD_LAUNCHES
+    ([T, P, ...]); tile t is global tile ``tile_base + t``.
+    ``alpha_matmul`` launches the kernel's alpha_matmul mode (power as a
+    six-term dot in tile-local coordinates)."""
+    global FORWARD_LAUNCHES, FORWARD_MM_LAUNCHES
     dev, n, f_dim, n_tiles, p = _check_splats(
         xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
         tile_counts, grid)
@@ -224,7 +234,7 @@ def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
         raise ValueError(f"tile of {p} pixels: the kernel needs a multiple "
                          "of 4 pixels, at most 1024")
     lib = _library("raster_forward")
-    _check_smem(lib, "raster_forward", p, f_dim)
+    _check_smem(lib, "raster_forward", p, f_dim, alpha_matmul)
     if max(n, gid_sorted.shape[0], n_tiles * p * max(f_dim, 3)) >= 2 ** 31:
         raise ValueError("sizes exceed the kernel's 32-bit indexing")
     check_tile_lists(gid_sorted, tile_starts, tile_counts, n)
@@ -242,11 +252,14 @@ def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             rgb.data_ptr(), depth.data_ptr(), feat.data_ptr(),
             gid_sorted.data_ptr(), tile_starts.data_ptr(),
             tile_counts.data_ptr(), n_tiles, tile_base, grid.grid_x,
-            grid.grid_y, grid.tile_w, grid.tile_h, f_dim, color.data_ptr(),
+            grid.grid_y, grid.tile_w, grid.tile_h, f_dim, int(alpha_matmul),
+            color.data_ptr(),
             feature.data_ptr(), depth_out.data_ptr(), final_t.data_ptr(),
             n_contrib.data_ptr(), stream)
     _raise_on(lib, "raster_forward", err)
-    if n_tiles:
+    if n_tiles and alpha_matmul:
+        FORWARD_MM_LAUNCHES += 1
+    elif n_tiles:
         FORWARD_LAUNCHES += 1
     return CompositeOutput(color, feature, depth_out, final_t, n_contrib)
 
@@ -255,6 +268,7 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
                          tile_starts, tile_counts, grid: TileGrid, g_color,
                          g_feat, g_depth, g_final_t, final_t, n_contrib, *,
                          feature_alpha_grad: bool = False,
+                         alpha_matmul: bool = False,
                          check_lists: bool = True,
                          out: BackwardRows | None = None) -> BackwardRows:
     """Per-entry gradient rows of the forward compositing, from the backward
@@ -266,9 +280,10 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     [L,F]. The tiles' lists must cover gid_sorted exactly once, in order
     (``ops.binning``'s layout); ``check_lists`` verifies that and the ranges
     with one host sync, and the autograd path skips it because its forward
-    checked the same lists. ``out`` takes preallocated rows (the smoke
+    checked the same lists. ``alpha_matmul`` must be the mode of the forward
+    that made ``final_t`` and ``n_contrib``. ``out`` takes preallocated rows (the smoke
     check fills them with NaN to show that every row is written)."""
-    global BACKWARD_LAUNCHES
+    global BACKWARD_LAUNCHES, BACKWARD_MM_LAUNCHES
     dev, n, f_dim, n_tiles, p = _check_splats(
         xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
         tile_counts, grid)
@@ -287,7 +302,7 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
            n_tiles * p * max(f_dim, 3)) >= 2 ** 31:
         raise ValueError("sizes exceed the kernel's 32-bit indexing")
     lib = _library("raster_backward")
-    _check_smem(lib, "raster_backward", p, f_dim)
+    _check_smem(lib, "raster_backward", p, f_dim, alpha_matmul)
     if check_lists:
         check_tile_lists(gid_sorted, tile_starts, tile_counts, n)
         check_tile_partition(tile_starts, tile_counts, n_inst)
@@ -305,9 +320,12 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             tile_counts.data_ptr(), g_color.data_ptr(), g_feat.data_ptr(),
             g_depth.data_ptr(), g_final_t.data_ptr(), final_t.data_ptr(),
             n_contrib.data_ptr(), n_tiles, grid.grid_x, grid.tile_w,
-            grid.tile_h, f_dim, int(feature_alpha_grad), out.geom.data_ptr(),
+            grid.tile_h, f_dim, int(feature_alpha_grad), int(alpha_matmul),
+            out.geom.data_ptr(),
             out.feature.data_ptr(), stream)
     _raise_on(lib, "raster_backward", err)
-    if n_tiles:
+    if n_tiles and alpha_matmul:
+        BACKWARD_MM_LAUNCHES += 1
+    elif n_tiles:
         BACKWARD_LAUNCHES += 1
     return out

@@ -60,6 +60,14 @@ class RasterConfig:
       check). The backward follows the same choice as the forward.
     feature_alpha_grad: the reference leaves the feature -> alpha gradient
       coupling out (backward.cu:575); True restores the complete gradient.
+    alpha_matmul: evaluate the Gaussian exponent as a six-term dot of
+      per-splat coefficients with the pixel's tile-local monomials
+      (1, x, y, x^2, xy, y^2), and the backward's geometric sums as six
+      monomial-weighted sums plus a per-entry chain rule, in both kernels
+      and both plain versions (ops/composite.py, ops/csrc/raster_common.cuh).
+      Same math, regrouped floats: power moves by ~1e-6, so outputs agree
+      with the exact mode to ~1e-4 and ``n_contrib`` may differ by one on
+      isolated pixels. The forward and backward of a step share the mode.
     """
 
     tile_w: int = 32
@@ -68,6 +76,7 @@ class RasterConfig:
     instance_capacity: int = 0
     backend: str = "auto"
     feature_alpha_grad: bool = False
+    alpha_matmul: bool = False
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -191,9 +200,10 @@ class _Composite(torch.autograd.Function):
         args = (xy, conic, opacity, rgb, depth, feat, gid_sorted,
                 tile_starts, tile_counts, grid)
         if _use_kernels(config, xy):
-            out = raster_forward_cuda(*args)
+            out = raster_forward_cuda(*args, alpha_matmul=config.alpha_matmul)
         else:
-            out = composite_plain(*args, chunk=config.chunk)
+            out = composite_plain(*args, chunk=config.chunk,
+                                  alpha_matmul=config.alpha_matmul)
         ctx.grid, ctx.config = grid, config
         ctx.save_for_backward(xy, conic, opacity, rgb, depth, feat,
                               gid_sorted, tile_starts, tile_counts,
@@ -221,11 +231,12 @@ class _Composite(torch.autograd.Function):
             # out as the kernel's one-row-per-entry output needs
             rows = raster_backward_cuda(
                 *args, feature_alpha_grad=config.feature_alpha_grad,
-                check_lists=False)
+                alpha_matmul=config.alpha_matmul, check_lists=False)
         else:
             rows = composite_plain_backward(
                 *args, chunk=config.chunk,
-                feature_alpha_grad=config.feature_alpha_grad)
+                feature_alpha_grad=config.feature_alpha_grad,
+                alpha_matmul=config.alpha_matmul)
         plan = SegmentPlan(gid_sorted, xy.shape[0])
         dg = plan.sum(rows.geom)
         d_feat = plan.sum(rows.feature) if ctx.needs_input_grad[5] else None

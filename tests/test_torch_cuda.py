@@ -8,7 +8,9 @@ the card, run without the JAX-side conftest:
 Bars as tests/test_pallas.py: forward 1e-5 absolute on color, features and
 final_T, 1e-4 on depth, n_contrib exactly; backward 5e-6 on every gradient
 group (per-entry rows and per-Gaussian sums) after dividing by the group's
-largest magnitude.
+largest magnitude. The alpha_matmul mode has its own, looser contract
+(stated at its test), and a densify round on the card equals the same round
+on the CPU.
 """
 import math
 
@@ -211,3 +213,159 @@ def test_rasterize_backward_on_the_card(dev):
         grads[backend] = {k: v.grad for k, v in leaves.items()}
     for k in base:
         assert _norm_err(grads["cuda"][k], grads["plain"][k]) <= 5e-6, k
+
+
+@pytest.mark.parametrize("f_dim,tile_w", [(4, 16), (128, 16), (128, 32)])
+def test_alpha_matmul_kernels_match_plain(dev, f_dim, tile_w):
+    """Both kernels in the alpha_matmul mode against the plain versions in
+    the same mode, to the mode's contract (tests/test_pallas.py:413-446):
+    1e-4 on color, features and final_T, 5e-4 on depth, n_contrib differing
+    on fewer than 1% of the pixels by at most 1, gradient rows at 1e-4
+    max-normalised (4x that at 32-wide tiles, whose tile-local terms are 4x
+    as large); every row written; the mode's own launch counts."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.composite import (BackwardRows,
+                                                     composite_plain,
+                                                     composite_plain_backward)
+    from feature3dgs_tpu_torch.ops.segment import SegmentPlan
+    widen = (tile_w / 16) ** 2
+    ci = _inputs(dev, f_dim, tile_w, 16, 3.0)
+    counts = (cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES,
+              cuda_raster.FORWARD_MM_LAUNCHES, cuda_raster.BACKWARD_MM_LAUNCHES)
+    fwd = cuda_raster.raster_forward_cuda(*ci.args, alpha_matmul=True)
+    ref = composite_plain(*ci.args, chunk=16, alpha_matmul=True)
+    for k, tol in (("color", 1e-4), ("feature", 1e-4), ("final_T", 1e-4),
+                   ("depth", 5e-4)):
+        assert float((getattr(fwd, k) - getattr(ref, k)).abs().max()) \
+            <= tol * widen, k
+    diff = (fwd.n_contrib - ref.n_contrib).abs()
+    assert float((diff > 0).float().mean()) < 0.01 and int(diff.max()) <= 1
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    rest = (*[torch.randn(x.shape, generator=gen).to(dev)
+              for x in (fwd.color, fwd.feature, fwd.depth, fwd.final_T)],
+            fwd.final_T, fwd.n_contrib)
+    n_inst = ci.bins.gid_sorted.shape[0]
+    got = cuda_raster.raster_backward_cuda(
+        *ci.args, *rest, alpha_matmul=True, out=BackwardRows(
+            torch.full((n_inst, 10), float("nan"), device=dev),
+            torch.full((n_inst, f_dim), float("nan"), device=dev)))
+    rows = composite_plain_backward(*ci.args, *rest, chunk=16,
+                                    alpha_matmul=True)
+    torch.cuda.synchronize()
+    assert (cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES,
+            cuda_raster.FORWARD_MM_LAUNCHES,
+            cuda_raster.BACKWARD_MM_LAUNCHES) == (
+        counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+    assert not got.geom.isnan().any() and not got.feature.isnan().any()
+    plan = SegmentPlan(ci.bins.gid_sorted, ci.args[0].shape[0])
+    for name, a, b in GROUPS:
+        assert _norm_err(got.geom[:, a:b], rows.geom[:, a:b]) \
+            <= 1e-4 * widen, name
+        assert _norm_err(plan.sum(got.geom[:, a:b]),
+                         plan.sum(rows.geom[:, a:b])) <= 1e-4 * widen, name
+    assert _norm_err(got.feature, rows.feature) <= 1e-4 * widen
+    again = cuda_raster.raster_backward_cuda(*ci.args, *rest,
+                                             alpha_matmul=True)
+    assert torch.equal(again.geom, got.geom)            # deterministic
+
+
+def test_exact_mode_is_unchanged_by_the_flag(dev):
+    """alpha_matmul=False gives the bits of a call without the argument,
+    forward and backward."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    ci, rest = _backward_inputs(dev, 128)
+    absent = cuda_raster.raster_forward_cuda(*ci.args)
+    off = cuda_raster.raster_forward_cuda(*ci.args, alpha_matmul=False)
+    for a, b in zip(absent, off):
+        assert torch.equal(a, b)
+    rows_absent = cuda_raster.raster_backward_cuda(*ci.args, *rest)
+    rows_off = cuda_raster.raster_backward_cuda(*ci.args, *rest,
+                                                alpha_matmul=False)
+    assert torch.equal(rows_absent.geom, rows_off.geom)
+    assert torch.equal(rows_absent.feature, rows_off.feature)
+    on = cuda_raster.raster_forward_cuda(*ci.args, alpha_matmul=True)
+    assert not torch.equal(on.color, absent.color)      # the mode does differ
+
+
+def test_rasterize_alpha_matmul_on_the_card(dev):
+    """RasterConfig(alpha_matmul=True) launches the alpha-mode kernels,
+    forward and backward, through rasterize."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig, composite
+    ci = _inputs(dev, 16, 16, 16, 3.0)
+    leaves = [x.clone().requires_grad_() for x in ci.args[:6]]
+    before = (cuda_raster.FORWARD_MM_LAUNCHES, cuda_raster.BACKWARD_MM_LAUNCHES,
+              cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)
+    out = composite((*leaves, *ci.args[6:]),
+                    RasterConfig(tile_w=16, tile_h=16, alpha_matmul=True))
+    (out.color.square().mean() + out.feature.abs().mean()).backward()
+    assert (cuda_raster.FORWARD_MM_LAUNCHES, cuda_raster.BACKWARD_MM_LAUNCHES,
+            cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
+
+
+@pytest.mark.parametrize("use_screen_size_prune", [False, True])
+def test_densify_round_on_the_card_equals_the_cpu(dev, use_screen_size_prune):
+    """The same round from the same state and noise on CUDA and on the CPU:
+    alive, the report and every verbatim copy exactly, children's positions
+    and scales at 1e-6."""
+    from feature3dgs_tpu_torch.model import density
+    from feature3dgs_tpu_torch.model import gaussians as G
+    from feature3dgs_tpu_torch.model import optim
+    rng = np.random.RandomState(3)
+    cap, f32 = 4096, np.float32
+    shapes = {"xyz": (3,), "features_dc": (1, 3), "features_rest": (15, 3),
+              "scaling": (3,), "rotation": (4,), "opacity": (1,),
+              "semantic_feature": (1, 16)}
+    params = {k: rng.randn(cap, *s).astype(f32) for k, s in shapes.items()}
+    params["scaling"] = np.log(rng.uniform(0.005, 0.09, (cap, 1))
+                               * rng.uniform(0.7, 1.0, (cap, 3))).astype(f32)
+    params["scaling"][::7] = np.log(0.5)
+    params["opacity"] = rng.uniform(-7.0, 2.0, (cap, 1)).astype(f32)
+    moments = {k: rng.rand(cap, *s).astype(f32) for k, s in shapes.items()}
+    alive = rng.rand(cap) > 0.4
+    denom = rng.randint(0, 4, cap).astype(f32)
+    accum = (rng.uniform(0, 5e-4, cap) * np.maximum(denom, 1)).astype(f32)
+    noise = rng.randn(2, cap, 3).astype(f32)
+
+    def state_on(device):
+        to = lambda x: torch.from_numpy(x.copy()).to(device)
+        p = G.GaussianParams(**{k: to(v) for k, v in params.items()})
+        gs = G.GaussianState(alive=to(alive), max_radii2d=to(denom),
+                             xyz_gradient_accum=to(accum), denom=to(denom))
+        adam = optim.AdamState(
+            G.GaussianParams(**{k: to(v) for k, v in moments.items()}),
+            G.GaussianParams(**{k: to(v) for k, v in moments.items()}),
+            torch.tensor(3, dtype=torch.int32, device=device))
+        return p, gs, adam, to(noise), torch.tensor(4.0, device=device)
+
+    def run(p, gs, adam, noise_t, extent):
+        return density.densify_and_prune(
+            p, gs, adam, noise_t, max_grad=2e-4, min_opacity=0.005,
+            extent=extent, percent_dense=0.01,
+            use_screen_size_prune=use_screen_size_prune)
+
+    card_state = state_on(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")     # the round reads nothing back
+    try:
+        on_card = run(*card_state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    on_cpu = run(*state_on("cpu"))
+    for name in on_cpu[3]._fields:
+        assert int(getattr(on_card[3], name)) == int(getattr(on_cpu[3], name))
+    assert int(on_cpu[3].num_cloned) > 0 and int(on_cpu[3].num_split) > 0
+    assert int(on_cpu[3].num_pruned) > 0
+    assert torch.equal(on_card[1].alive.cpu(), on_cpu[1].alive)
+    for k in shapes:
+        a, b = getattr(on_card[0], k).cpu(), getattr(on_cpu[0], k)
+        if k in ("xyz", "scaling"):
+            assert float((a - b).abs().max()) <= 1e-6 * max(
+                1.0, float(b.abs().max())), k
+        else:
+            assert torch.equal(a, b), k
+        assert torch.equal(getattr(on_card[2].mu, k).cpu(),
+                           getattr(on_cpu[2].mu, k)), k

@@ -150,6 +150,20 @@ def _call_entry_point(name, tmp_path, **kw):
         return TrainState.create(params, gstate, **kw)
     if name == "decoder_from_numpy":
         return convert.decoder_from_numpy({"w": eye, "b": eye[0]}, **kw)
+    if name == "load_checkpoint":
+        # the device is resolved before the file is opened
+        from feature3dgs_tpu_torch.train.checkpoints import load_checkpoint
+        return load_checkpoint(str(tmp_path / "missing.ckpt"), **kw)
+    if name == "Trainer":
+        from feature3dgs_tpu_torch.data.synthetic import synthetic_scene
+        from feature3dgs_tpu_torch.train.trainer import Trainer
+        return Trainer(synthetic_scene(n_cams=1, w=16, h=16, n_pts=8,
+                                       f_dim=4), **kw)
+    if name == "cli.train.main":
+        from feature3dgs_tpu_torch.cli import train
+        # the device is resolved before the scene is read
+        argv = ["-s", str(tmp_path / "no_scene"), "-m", str(tmp_path / "out")]
+        return train.main(argv + (["--device", kw["device"]] if kw else []))
     assert name == "camera_from_numpy"
     return convert.camera_from_numpy(eye, eye, eye[0, :3], 0.5, 0.4, 8, 6,
                                      **kw)
@@ -159,7 +173,12 @@ ENTRY_POINTS = ["load_gaussians_ply", "load_decoder_checkpoint",
                 "init_decoder", "create_from_pcd", "Camera.to_view",
                 "gaussians_from_numpy", "decoder_from_numpy",
                 "camera_from_numpy", "train_state_from_numpy", "init_adam",
-                "TrainState.create"]
+                "TrainState.create", "load_checkpoint", "Trainer",
+                "cli.train.main"]
+# the device is resolved first, then these fail on their missing input
+NEEDS_A_FILE = {"load_decoder_checkpoint": FileNotFoundError,
+                "load_checkpoint": FileNotFoundError,
+                "cli.train.main": ValueError}
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -167,7 +186,10 @@ def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     """Without a device argument every entry point that makes tensors asks
     for the CUDA card, so without CUDA it raises instead of quietly
     serving from the CPU; device='cpu' is honoured."""
-    if name != "load_decoder_checkpoint":
+    if name in NEEDS_A_FILE:
+        with pytest.raises(NEEDS_A_FILE[name]):
+            _call_entry_point(name, tmp_path, device="cpu")
+    else:
         _call_entry_point(name, tmp_path, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -188,3 +210,38 @@ def test_backward_kernel_wrapper_raises_on_cpu_tensors():
             z(n, 2), z(n, 3), z(n), z(n, 3), z(n), z(n, 4), i32(0), i32(1),
             i32(1), grid, z(1, p, 3), z(1, p, 4), z(1, p), z(1, p), z(1, p),
             i32(1, p))
+
+
+def test_host_side_helpers_need_no_device():
+    """The synthetic scene, the KNN and a densify round on CPU tensors run
+    without CUDA and without asking for a device."""
+    from feature3dgs_tpu_torch.data.synthetic import synthetic_scene
+    from feature3dgs_tpu_torch.model import density, optim
+    from feature3dgs_tpu_torch.model import gaussians as G
+    from feature3dgs_tpu_torch.ops.knn import mean_sq_dist_3nn
+    scene = synthetic_scene(n_cams=2, w=16, h=12, n_pts=10, f_dim=4)
+    assert len(scene.train_cameras) == 2 and scene.points.shape == (10, 3)
+    assert mean_sq_dist_3nn(scene.points).shape == (10,)
+    params, state = G.create_from_pcd(scene.points, scene.colors,
+                                      feature_dim=4, capacity=16, device="cpu")
+    _, state, _, report = density.densify_and_prune(
+        params, state, optim.init_adam(params, "cpu"), torch.zeros(2, 16, 3),
+        max_grad=1.0, min_opacity=0.005, extent=4.0, percent_dense=0.01,
+        use_screen_size_prune=False)
+    assert int(report.num_active) == 10 == state.num_active
+
+
+def test_alpha_mode_wrappers_raise_on_cpu_tensors():
+    """No hidden fallback in the alpha_matmul mode either."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.binning import TileGrid
+    grid = TileGrid(32, 16, 32, 16)
+    n = 4
+    z = lambda *shape: torch.zeros(shape)
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    before = cuda_raster.FORWARD_MM_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_raster.raster_forward_cuda(
+            z(n, 2), z(n, 3), z(n), z(n, 3), z(n), z(n, 4), i32(0), i32(1),
+            i32(1), grid, alpha_matmul=True)
+    assert cuda_raster.FORWARD_MM_LAUNCHES == before

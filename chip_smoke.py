@@ -5,7 +5,11 @@
 
 Phases, one line each; any failure raises and exits non-zero:
   build        nvcc-builds the CUDA kernels from this checkout's sources
-               (one nvcc per source, in parallel).
+               (one nvcc per source, in parallel); ptxas' registers and
+               spills per instantiation, and for the instantiations the
+               main path launches (512-pixel tiles, F = 128, both modes)
+               registers, local bytes, resident blocks an SM and the launch
+               plan; whether ncu is installed.
   kernel_small the forward compositing kernel against its plain PyTorch
                version on the card at the test scenes (16x16 tiles,
                F = 4 and 128, boosted opacities): 1e-5 absolute on color,
@@ -14,7 +18,10 @@ Phases, one line each; any failure raises and exits non-zero:
                100K Gaussians, SH degree 3, 128 feature channels,
                1216x800, 32x16 tiles, seed 0): 1e-4 absolute on color,
                features and final_T, 1e-3 on depth, n_contrib equal on at
-               least 99.99% of pixels; kernel and plain times, the bound.
+               least 99.99% of pixels; kernel and plain times, the bound,
+               and beside the bound's bytes the bytes the kernel's design
+               moves (device memory; L2 to shared memory) and what the
+               design before it moved over the feature map.
   serve        the serving path as a user drives it: save the scene's PLY,
                load it back, render 8 orbit views (scripts/bench_render.py)
                through renderer.render plus the 128->512 decoder; outputs
@@ -28,7 +35,15 @@ Phases, one line each; any failure raises and exits non-zero:
                NaN are all written.
   kernel_bwd_full   the same at the training scene with the cotangents of
                bench.py's loss, at 1e-5; two kernel + segment-sum runs
-               bit-equal; kernel, plain and segment-sum times, the bound.
+               bit-equal; kernel, plain and segment-sum times, the bound
+               and the design's bytes (passes over the cotangent rows).
+  kernel_loop  both kernels alone, in both modes, at the first view of the
+               train_loop scene (scales from 3-NN distances, opacity 0.1,
+               SH degree 0: ~1.79 M instances, 30-56 chunks a tile, where a
+               training run lives): against the plain versions with the
+               kernels' own chunk of 32 at the training scene's bars, two
+               backward launches bit-equal, 20 launches each timed by CUDA
+               events, that scene's own bound and design bytes.
   train        bench.py's training step (bench.py:81-119: the scene above,
                a 608x400 128-d teacher, black background, default
                OptimizationConfig): step 1's Adam moments equal to the
@@ -90,6 +105,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -242,15 +258,16 @@ def orbit_view(i):
     return transforms.world_to_view(rot, np.array([0.0, 0.0, 5.0]))
 
 
-def bench_inputs(dev, params, state):
-    """The training / serving scene from orbit view 0, preprocessed and
-    binned at the default RasterConfig."""
+def bench_inputs(dev, params, state, cam=None):
+    """The training / serving scene from orbit view 0 (or ``cam``),
+    preprocessed and binned at the default RasterConfig."""
     import torch
     from feature3dgs_tpu_torch.model import gaussians as G
     from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
                                                      composite_inputs)
-    cam = camera(orbit_view(0), WIDTH, HEIGHT, math.tan(0.6), math.tan(0.45),
-                 dev)
+    if cam is None:
+        cam = camera(orbit_view(0), WIDTH, HEIGHT, math.tan(0.6),
+                     math.tan(0.45), dev)
     opacity = torch.where(state.alive, G.get_opacity(params),
                           torch.zeros((), device=dev))
     return composite_inputs(
@@ -297,6 +314,67 @@ def bound_fields(n_bytes, ops):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def chunks_per_tile(entries):
+    """[T] 32-entry chunks of lists of ``entries`` [T] entries."""
+    from feature3dgs_tpu_torch.ops.cuda_raster import KERNEL_CHUNK
+    return (entries.long() + KERNEL_CHUNK - 1) // KERNEL_CHUNK
+
+
+def forward_design_bytes(ci):
+    """Bytes the forward kernel moves by its design, whatever the caches do:
+    "dram" = every output written once and each staged list entry's
+    (10 + F) floats and id read once; "l2" = what is staged from L2 into
+    shared memory (every block of a tile, pixel splits x channel groups,
+    stages the scalars of every chunk and its channels of the feature
+    rows); "out_feat" = the
+    feature map's share of dram (one write, no read); "out_feat_before" =
+    the same share under the design before this one, which added each
+    chunk's product into out_feat in device memory (a write per chunk and a
+    read per chunk after the first). Early exits are not reckoned: a tile
+    counts all its chunks."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.cuda_raster import KERNEL_CHUNK
+    if not hasattr(cuda_raster, "forward_plan"):
+        return {}       # an older checkout's kernels, timed by this script
+    n_tiles, p = ci.grid.num_tiles, ci.grid.pixels_per_tile
+    plan = cuda_raster.forward_plan(p, F_DIM)
+    chunks = chunks_per_tile(ci.bins.tile_counts)
+    staged = int(chunks.sum()) * KERNEL_CHUNK
+    out_feat = 4 * n_tiles * p * F_DIM
+    passes_before = int((2 * chunks - 1).clamp_min(1).sum())
+    return {"dram": 4 * (n_tiles * p * (F_DIM + 6) + staged * (11 + F_DIM)),
+            "l2": 4 * staged * plan.splits * plan.groups
+            * (11 + 8 * plan.channel_tiles * plan.halves),
+            "out_feat": out_feat, "out_feat_before": 4 * passes_before * p * F_DIM}
+
+
+def backward_design_bytes(ci, n_contrib):
+    """The same for the backward: "dram" = cotangents and saved state read
+    once, the walked entries' scalars and ids read once, one row written per
+    entry; "g_l2" = the cotangent rows [g_feat | g_color | g_depth] streamed
+    from L2 into shared memory once per pass of ``entries`` staged list
+    entries; "g_l2_before" = the design before this one, which streamed
+    g_feat once per 32 entries."""
+    import torch
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.cuda_raster import KERNEL_CHUNK
+    if not hasattr(cuda_raster, "backward_plan"):
+        return {}
+    n_tiles, p = ci.grid.num_tiles, ci.grid.pixels_per_tile
+    plan = cuda_raster.backward_plan(p, F_DIM)
+    walked = torch.minimum(n_contrib.amax(1), ci.bins.tile_counts)
+    chunks = chunks_per_tile(walked)
+    per_pass = plan.entries // KERNEL_CHUNK
+    passes = int(((chunks + per_pass - 1) // per_pass).sum())
+    n_inst = ci.bins.gid_sorted.shape[0]
+    return {"dram": 4 * (n_tiles * p * (F_DIM + 7)
+                         + int(chunks.sum()) * KERNEL_CHUNK * 11
+                         + n_inst * (10 + F_DIM)),
+            "g_l2": 4 * passes * p * (F_DIM + 4), "g_passes": passes,
+            "g_l2_before": 4 * int(chunks.sum()) * p * F_DIM,
+            "g_passes_before": int(chunks.sum())}
+
+
 def phase_kernel_full(dev, params, state):
     import torch
     from feature3dgs_tpu_torch.ops.composite import composite_plain
@@ -316,6 +394,7 @@ def phase_kernel_full(dev, params, state):
     instances = int(ci.bins.total)
     n_bytes, ops, n_tested, n_contributing = forward_bound(
         stats, ci.grid.num_tiles, ci.grid.pixels_per_tile)
+    design = forward_design_bytes(ci)
     say("kernel_full", instances=instances,
         max_tile_count=int(ci.bins.tile_counts.max()),
         max_abs_err=json.dumps(errs).replace(" ", ""),
@@ -325,7 +404,8 @@ def phase_kernel_full(dev, params, state):
         entries_tested=stats["entries_tested"], gaussians_tested=n_tested,
         gaussians_contributing=n_contributing, bound_bytes=n_bytes,
         bound_bytes_ms=f"{n_bytes / PEAK_BYTES * 1e3:.4f}", bound_ops=ops,
-        bound_ops_ms=f"{ops / PEAK_F32_FLOPS * 1e3:.4f}")
+        bound_ops_ms=f"{ops / PEAK_F32_FLOPS * 1e3:.4f}",
+        **{"design_" + k + "_bytes": v for k, v in design.items()})
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
             **bound_fields(n_bytes, ops)}
 
@@ -563,6 +643,7 @@ def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
     segment_ms = cuda_ms(segment_sum, 20)
     n_bytes, ops, n_walked, n_contributing = backward_bound(
         stats, ci.grid.num_tiles, ci.grid.pixels_per_tile, n_inst)
+    design = backward_design_bytes(ci, fwd.n_contrib)
     say("kernel_bwd_full", instances=int(ci.bins.total),
         max_norm_err=err, max_abs_err=abs_err, bit_equal_runs=2,
         kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.2f}",
@@ -571,9 +652,102 @@ def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
         entries_walked=stats["entries_walked"], gaussians_walked=n_walked,
         gaussians_contributing=n_contributing, bound_bytes=n_bytes,
         bound_bytes_ms=f"{n_bytes / PEAK_BYTES * 1e3:.4f}", bound_ops=ops,
-        bound_ops_ms=f"{ops / PEAK_F32_FLOPS * 1e3:.4f}")
+        bound_ops_ms=f"{ops / PEAK_F32_FLOPS * 1e3:.4f}",
+        **{"design_" + k: v for k, v in design.items()})
     return {"max_abs_err": abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
             **bound_fields(n_bytes, ops)}
+
+
+def phase_kernel_loop(dev, scene):
+    """Both kernels alone at the first view of the train_loop scene, exact
+    and alpha_matmul modes; returns {(kernel, mode): loop-scene fields of
+    the kernels line}."""
+    import torch
+    from feature3dgs_tpu_torch.ops.composite import (composite_plain,
+                                                     composite_plain_backward)
+    from feature3dgs_tpu_torch.ops.cuda_raster import (KERNEL_CHUNK,
+                                                       raster_backward_cuda,
+                                                       raster_forward_cuda)
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
+    from feature3dgs_tpu_torch.ops.segment import SegmentPlan
+    from feature3dgs_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(scene, rcfg=RasterConfig(), max_sh_degree=3,
+                      feature_dim=F_DIM, capacity_headroom=1.0, seed=0,
+                      device=dev)
+    cam0 = scene.train_cameras[0]
+    ci = bench_inputs(dev, trainer.ts.params, trainer.ts.gstate,
+                      cam=cam0.to_view(dev))
+    gt_image = torch.from_numpy(np.asarray(cam0.image, np.float32)).to(dev)
+    gt_feature = torch.from_numpy(
+        np.asarray(cam0.semantic_feature).astype(np.float32)).to(dev)
+    del trainer
+    n_tiles, p = ci.grid.num_tiles, ci.grid.pixels_per_tile
+    n_inst = ci.bins.gid_sorted.shape[0]
+    plan = SegmentPlan(ci.bins.gid_sorted, ci.args[0].shape[0])
+    chunks = chunks_per_tile(ci.bins.tile_counts)
+    out = {}
+    for mm in (False, True):
+        tag = "kernel_loop alpha_matmul" if mm else "kernel_loop"
+        f_stats: dict = {}
+        got = raster_forward_cuda(*ci.args, alpha_matmul=mm)
+        ref = composite_plain(*ci.args, chunk=KERNEL_CHUNK, alpha_matmul=mm,
+                              stats=f_stats)
+        torch.cuda.synchronize()
+        if mm:
+            f_err, _, mism, _ = compare_alpha(tag + " vs plain", got, ref)
+        else:
+            f_err, mism, _ = compare(tag, got, ref, 1e-4, 1e-3, 0.9999)
+        del ref
+        args = (*ci.args, *bench_loss_cotangents(ci, got, gt_image,
+                                                 gt_feature),
+                got.final_T, got.n_contrib)
+        rows = raster_backward_cuda(*args, alpha_matmul=mm, check_lists=False,
+                                    out=poisoned_rows(n_inst, F_DIM, dev))
+        b_stats: dict = {}
+        ref_rows = composite_plain_backward(*args, chunk=KERNEL_CHUNK,
+                                            alpha_matmul=mm, stats=b_stats)
+        torch.cuda.synchronize()
+        assert_all_written(tag, rows)
+        b_err, b_abs = compare_rows(tag + " backward", rows, ref_rows, plan,
+                                    1e-3 if mm else 1e-5)
+        del ref_rows
+        again = raster_backward_cuda(*args, alpha_matmul=mm,
+                                     check_lists=False)
+        if not (torch.equal(again.geom, rows.geom)
+                and torch.equal(again.feature, rows.feature)):
+            raise AssertionError(f"{tag}: two backward launches differ")
+        del again
+        f_ms = cuda_ms(lambda: raster_forward_cuda(*ci.args, alpha_matmul=mm),
+                       20)
+        b_ms = cuda_ms(lambda: raster_backward_cuda(
+            *args, alpha_matmul=mm, check_lists=False), 20)
+        fb, fo, _, _ = forward_bound(f_stats, n_tiles, p)
+        bb, bo, _, _ = backward_bound(b_stats, n_tiles, p, n_inst)
+        fd, bd = forward_design_bytes(ci), backward_design_bytes(
+            ci, got.n_contrib)
+        say("kernel_loop", alpha_matmul=mm, instances=int(ci.bins.total),
+            chunks_per_tile_median=int(chunks.median()),
+            chunks_per_tile_max=int(chunks.max()),
+            fwd_ms=f"{f_ms:.4f}", bwd_ms=f"{b_ms:.4f}",
+            fwd_max_abs_err=f_err, n_contrib_mismatches=mism,
+            bwd_max_norm_err=b_err, bit_equal_runs=2,
+            pairs_tested=f_stats["tested"], pairs_walked=b_stats["walked"],
+            pairs_contributing=f_stats["contributing"],
+            fwd_bound_bytes=fb, fwd_bound_ops=fo,
+            fwd_bound_ms=f"{bound_fields(fb, fo)['bound_ms']:.4f}",
+            bwd_bound_bytes=bb, bwd_bound_ops=bo,
+            bwd_bound_ms=f"{bound_fields(bb, bo)['bound_ms']:.4f}",
+            n_contrib_crc32=zlib.crc32(
+                got.n_contrib.cpu().numpy().tobytes()),
+            **{"fwd_design_" + k + "_bytes": v for k, v in fd.items()},
+            **{"bwd_design_" + k: v for k, v in bd.items()})
+        for name, ms, (b_bytes, b_ops) in (("fwd", f_ms, (fb, fo)),
+                                           ("bwd", b_ms, (bb, bo))):
+            bound = bound_fields(b_bytes, b_ops)
+            out[(name, mm)] = {"loop_scene_ms": ms,
+                               "loop_scene_bound_ms": bound["bound_ms"],
+                               "loop_scene_bound_by": bound["bound_by"]}
+    return out
 
 
 def phase_train(dev, profile_dir):
@@ -959,7 +1133,7 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
     return records
 
 
-def phase_train_loop(dev):
+def phase_train_loop(dev, scene, scene_s):
     import torch
     from feature3dgs_tpu_torch.model.ply_io import load_gaussians_ply
     from feature3dgs_tpu_torch.ops import cuda_raster
@@ -970,9 +1144,6 @@ def phase_train_loop(dev):
                                                      Trainer)
     work = os.path.join(ROOT, "build", "smoke", "loop")
     os.makedirs(work, exist_ok=True)
-    t0 = time.perf_counter()
-    scene = loop_scene()
-    scene_s = time.perf_counter() - t0
     ocfg = OptimizationConfig(
         iterations=LOOP_STEPS, densify_from_iter=LOOP_DENSIFY_FROM,
         densification_interval=LOOP_DENSIFY_EVERY,
@@ -1265,9 +1436,26 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     cuda_raster.build()
-    ptxas = [ln.strip() for ln in cuda_raster.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas, entry = [], ""
+    for ln in cuda_raster.BUILD_LOG.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "registers" in ln or "spill" in ln:
+            ptxas.append(f"{entry}: {ln.strip()}")
     say("build", seconds=f"{time.time() - t0:.1f}", ptxas=json.dumps(ptxas))
+    p_main = 32 * 16
+    for name in ("raster_forward", "raster_backward"):
+        for mm in (False, True):
+            # (an older checkout, whose kernels --only kernel_loop can time
+            # from its root, has no launch plans to report)
+            if hasattr(cuda_raster, "kernel_attributes"):
+                say("build_kernel", name=name, alpha_matmul=mm,
+                    pixels=p_main, F=F_DIM,
+                    **cuda_raster.kernel_attributes(name, p_main, F_DIM, mm))
+    import shutil
+    say("build_tools", ncu="installed, not run: its hardware counters need "
+        "privileges this check does not assume" if shutil.which("ncu")
+        else "not installed")
 
     if want("kernel_small"):
         phase_kernel_small(dev)
@@ -1288,8 +1476,14 @@ def main(argv=None) -> int:
     del params, state, gt_image, gt_feature
     if want("train"):
         train_fwd, train_bwd = phase_train(dev, args.profile)
+    if want("kernel_loop") or want("train_loop"):
+        t0 = time.perf_counter()
+        scene = loop_scene()
+        scene_s = time.perf_counter() - t0
+    if want("kernel_loop"):
+        at_loop = phase_kernel_loop(dev, scene)
     if want("train_loop"):
-        loop, loop_mm = phase_train_loop(dev)
+        loop, loop_mm = phase_train_loop(dev, scene, scene_s)
     if want("train_cli"):
         phase_train_cli()
 
@@ -1302,16 +1496,19 @@ def main(argv=None) -> int:
         dict(name="raster_forward", route="cuda",
              source=src + "raster_forward.cu", replaces=tpu + "192",
              launches=serve_launches + train_fwd + loop[0], **full,
-             library_ms=None),
+             library_ms=None, **at_loop[("fwd", False)]),
         dict(name="raster_backward", route="cuda",
              source=src + "raster_backward.cu", replaces=tpu + "495",
-             launches=train_bwd + loop[1], **bwd, library_ms=None),
+             launches=train_bwd + loop[1], **bwd, library_ms=None,
+             **at_loop[("bwd", False)]),
         dict(name="raster_forward_alpha_mm", route="cuda",
              source=src + "raster_forward.cu", replaces=tpu + "302",
-             launches=loop_mm[0], **full_mm, library_ms=None),
+             launches=loop_mm[0], **full_mm, library_ms=None,
+             **at_loop[("fwd", True)]),
         dict(name="raster_backward_alpha_mm", route="cuda",
              source=src + "raster_backward.cu", replaces=tpu + "671",
-             launches=loop_mm[1], **bwd_mm, library_ms=None)]}))
+             launches=loop_mm[1], **bwd_mm, library_ms=None,
+             **at_loop[("bwd", True)])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

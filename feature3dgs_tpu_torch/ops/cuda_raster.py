@@ -9,6 +9,13 @@ repository root, cached by the hash of the source, the headers it may
 include and the flags, and called through ``ctypes`` on PyTorch's current
 stream.
 
+The launch plans live here as pure functions, so the CPU tests reach them:
+``forward_plan`` (channel tiles a block accumulates in registers, channel
+groups a tile, shared memory) and ``backward_plan`` (list entries staged per
+pass over the cotangent rows, rows per ring stage, shared memory). Each
+library exports the same shared-memory formula and the wrappers check that
+the two agree.
+
 ``raster_forward_cuda`` and ``raster_backward_cuda`` launch their kernels on
 CUDA tensors and raise on anything else; ``ops.rasterize`` runs the plain
 versions (``ops.composite.composite_plain`` and
@@ -28,6 +35,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -50,6 +58,106 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the largest dynamic shared memory a Hopper block may use
 MAX_SMEM_BYTES = 232448
+
+
+
+class ForwardPlan(NamedTuple):
+    channel_tiles: int   # 8-channel mma tiles a warp accumulates (NT)
+    halves: int          # threads a pixel: 2 share one walk, 8 NT channels each
+    groups: int          # channel groups of 8 * NT * halves a tile
+    splits: int          # pixel splits a tile: groups * splits blocks a tile
+    threads: int         # threads a block: halves x its pixels, whole warps
+    smem_bytes: int
+
+
+class BackwardPlan(NamedTuple):
+    entries: int         # list entries whose weights are staged per pass
+    ring_rows: int       # cotangent rows per stage of the cp.async ring
+    smem_bytes: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+FORWARD_MAX_THREADS = 256
+
+
+def forward_smem_bytes(threads: int, channel_tiles: int, halves: int,
+                       alpha_matmul: bool) -> int:
+    """Dynamic shared memory of a forward block of ``threads`` threads,
+    ``halves`` a pixel (smem_bytes in raster_forward.cu): two stages of 32
+    feature rows, the chunk's weights, two stages of splat scalars and ids,
+    and what two threads of a pixel pass each other."""
+    channels = 8 * channel_tiles * halves
+    feat_stride = _round_up(channels, 32) + 8 if channels else 0
+    geom_rows = 16 if alpha_matmul else 10
+    pixels = threads // halves
+    return 4 * (2 * KERNEL_CHUNK * feat_stride + KERNEL_CHUNK * (pixels + 8)
+                + 2 * geom_rows * KERNEL_CHUNK + 2 * KERNEL_CHUNK
+                + (pixels + 16 if halves == 2 else 0))
+
+
+def forward_plan(p: int, f_dim: int, alpha_matmul: bool = False) -> ForwardPlan:
+    """How the forward kernel splits a tile over blocks of at most 256
+    threads. A warp keeps 8 * NT channels of its 32 pixels in registers for
+    the whole list (NT = 1, 2, 4 or 8 by F). Up to 64 channels a block has
+    one thread a pixel (up to 256 pixels); above, two threads a pixel in
+    separate warps share the pixel's walk and hold 64 channels each, so a
+    block owns up to 128 pixels x 128 channels and ceil(P / 128) pixel
+    splits x ceil(F / 128) channel groups share a tile. F = 0 launches the
+    walk alone."""
+    if p <= 0 or p > 1024:
+        raise ValueError(f"tile of {p} pixels: the kernel takes 1..1024")
+    halves = 2 if f_dim > 64 else 1
+    pixels = min(_round_up(p, 32), FORWARD_MAX_THREADS // halves)
+    nt = 0
+    if f_dim > 0:
+        nt = 1
+        while nt < 8 and 8 * nt < f_dim:
+            nt *= 2
+    groups = -(-f_dim // (8 * nt * halves)) if nt else 1
+    threads = pixels * halves
+    return ForwardPlan(nt, halves, groups, -(-p // pixels), threads,
+                       forward_smem_bytes(threads, nt, halves, alpha_matmul))
+
+
+def backward_smem_bytes(p: int, f_dim: int, alpha_matmul: bool, entries: int,
+                        ring_rows: int) -> int:
+    """Dynamic shared memory of a backward block (smem_bytes in
+    raster_backward.cu): the three-stage ring of cotangent rows
+    [g_feat | g_color | g_depth], the staged weights, the warps' partial
+    sums, the staged splat scalars, ids and the warps' maxima."""
+    g_stride = 8 * (-(-(f_dim + 4) // 8))
+    g_stride += (8 - g_stride % 32) % 32
+    geom_rows, part_cols = (18, 7) if alpha_matmul else (10, 6)
+    return 4 * (3 * ring_rows * g_stride + entries * (p + 4)
+                + (p // 32) * KERNEL_CHUNK * part_cols
+                + (entries // KERNEL_CHUNK) * geom_rows * KERNEL_CHUNK
+                + entries + 32)
+
+
+def backward_plan(p: int, f_dim: int, alpha_matmul: bool = False
+                  ) -> BackwardPlan:
+    """How much the backward kernel stages: the weights of 64 list entries
+    (two 32-entry walks) where shared memory allows, else 32, and the
+    largest ring stage of 32, 16 or 8 cotangent rows that still fits. More
+    staged entries come first: they halve the passes over the cotangents."""
+    if p <= 0 or p > 1024 or p % 32:
+        raise ValueError(f"tile of {p} pixels: the backward kernel needs a "
+                         "multiple of 32 pixels, at most 1024")
+    for entries in (64, 32):
+        if entries > p:
+            continue
+        for ring_rows in (32, 16, 8):
+            smem = backward_smem_bytes(p, f_dim, alpha_matmul, entries,
+                                       ring_rows)
+            if smem <= MAX_SMEM_BYTES:
+                return BackwardPlan(entries, ring_rows, smem)
+    raise ValueError(f"raster_backward: {f_dim} feature channels at {p}-pixel "
+                     f"tiles need {smem} bytes of shared memory "
+                     f"(> {MAX_SMEM_BYTES})")
+
 
 _libs: dict = {}
 _lib_lock = threading.Lock()
@@ -115,16 +223,19 @@ def _library(name: str):
         if not _libs:
             paths = build()
             p, i = ctypes.c_void_p, ctypes.c_int
-            for lib_name, sig in (("raster_forward", [p] * 9 + [i] * 8 + [p] * 6),
-                                  ("raster_backward",
-                                   [p] * 15 + [i] * 7 + [p] * 3)):
+            for lib_name, sig, n_plan in (
+                    ("raster_forward", [p] * 9 + [i] * 11 + [p] * 6, 4),
+                    ("raster_backward", [p] * 15 + [i] * 9 + [p] * 3, 5)):
                 lib = ctypes.CDLL(str(paths[lib_name]))
                 fn = getattr(lib, f"f3dgs_{lib_name}")
                 fn.argtypes, fn.restype = sig, i
                 chunk = getattr(lib, f"f3dgs_{lib_name}_chunk")
                 chunk.argtypes, chunk.restype = [], i
                 smem = getattr(lib, f"f3dgs_{lib_name}_smem_bytes")
-                smem.argtypes, smem.restype = [i, i, i], ctypes.c_size_t
+                smem.argtypes, smem.restype = [i] * n_plan, ctypes.c_size_t
+                attrs = getattr(lib, f"f3dgs_{lib_name}_attributes")
+                attrs.argtypes = [i] * n_plan + [ctypes.POINTER(i)]
+                attrs.restype = i
                 lib.f3dgs_error_string.argtypes = [i]
                 lib.f3dgs_error_string.restype = ctypes.c_char_p
                 if chunk() != KERNEL_CHUNK:
@@ -200,13 +311,36 @@ def _check_splats(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     return dev, n, f_dim, n_tiles, grid.pixels_per_tile
 
 
-def _check_smem(lib, name: str, p: int, f_dim: int, alpha_matmul: bool):
-    smem = getattr(lib, f"f3dgs_{name}_smem_bytes")(p, f_dim,
-                                                    int(alpha_matmul))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: {f_dim} feature channels at {p}-pixel "
-                         f"tiles need {smem} bytes of shared memory "
-                         f"(> {MAX_SMEM_BYTES})")
+def _check_smem(lib, name: str, planned: int, *shape):
+    """The library's own shared-memory formula must give the plan's bytes."""
+    smem = getattr(lib, f"f3dgs_{name}_smem_bytes")(*shape)
+    if smem != planned:
+        raise RuntimeError(f"{name}: the plan reckons {planned} bytes of "
+                           f"shared memory, the kernel {smem}")
+
+
+def _check_aligned(name: str, x: torch.Tensor):
+    if x.numel() and x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def kernel_attributes(name: str, p: int, f_dim: int,
+                      alpha_matmul: bool = False) -> dict:
+    """Registers and local-memory (spill) bytes a thread, and resident blocks
+    an SM, of the instantiation of kernel ``name`` ("raster_forward" or
+    "raster_backward") that these shapes launch, with its plan."""
+    lib = _library(name)
+    if name == "raster_forward":
+        plan = forward_plan(p, f_dim, alpha_matmul)
+        shape = (plan.threads, plan.channel_tiles, plan.halves,
+                 int(alpha_matmul))
+    else:
+        plan = backward_plan(p, f_dim, alpha_matmul)
+        shape = (p, f_dim, int(alpha_matmul), plan.entries, plan.ring_rows)
+    out = (ctypes.c_int * 3)()
+    _raise_on(lib, name, getattr(lib, f"f3dgs_{name}_attributes")(*shape, out))
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2], **plan._asdict()}
 
 
 def _raise_on(lib, name: str, err: int):
@@ -230,11 +364,11 @@ def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     dev, n, f_dim, n_tiles, p = _check_splats(
         xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
         tile_counts, grid)
-    if p > 1024 or p % 4:
-        raise ValueError(f"tile of {p} pixels: the kernel needs a multiple "
-                         "of 4 pixels, at most 1024")
+    plan = forward_plan(p, f_dim, alpha_matmul)
+    _check_aligned("feat", feat)
     lib = _library("raster_forward")
-    _check_smem(lib, "raster_forward", p, f_dim, alpha_matmul)
+    _check_smem(lib, "raster_forward", plan.smem_bytes, plan.threads,
+                plan.channel_tiles, plan.halves, int(alpha_matmul))
     if max(n, gid_sorted.shape[0], n_tiles * p * max(f_dim, 3)) >= 2 ** 31:
         raise ValueError("sizes exceed the kernel's 32-bit indexing")
     check_tile_lists(gid_sorted, tile_starts, tile_counts, n)
@@ -252,8 +386,8 @@ def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             rgb.data_ptr(), depth.data_ptr(), feat.data_ptr(),
             gid_sorted.data_ptr(), tile_starts.data_ptr(),
             tile_counts.data_ptr(), n_tiles, tile_base, grid.grid_x,
-            grid.grid_y, grid.tile_w, grid.tile_h, f_dim, int(alpha_matmul),
-            color.data_ptr(),
+            grid.grid_y, grid.tile_w, grid.tile_h, f_dim, plan.channel_tiles,
+            plan.halves, plan.threads, int(alpha_matmul), color.data_ptr(),
             feature.data_ptr(), depth_out.data_ptr(), final_t.data_ptr(),
             n_contrib.data_ptr(), stream)
     _raise_on(lib, "raster_forward", err)
@@ -294,15 +428,15 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
                     ("final_t", final_t)):
         _check(name, x, f32, (n_tiles, p), dev)
     _check("n_contrib", n_contrib, torch.int32, (n_tiles, p), dev)
-    if p > 1024 or p % 32:
-        raise ValueError(f"tile of {p} pixels: the backward kernel needs a "
-                         "multiple of 32 pixels, at most 1024")
+    plan = backward_plan(p, f_dim, alpha_matmul)
+    _check_aligned("g_feat", g_feat)
     n_inst = gid_sorted.shape[0]
     if max(n * max(f_dim, 3), n_inst * max(f_dim, 10),
            n_tiles * p * max(f_dim, 3)) >= 2 ** 31:
         raise ValueError("sizes exceed the kernel's 32-bit indexing")
     lib = _library("raster_backward")
-    _check_smem(lib, "raster_backward", p, f_dim, alpha_matmul)
+    _check_smem(lib, "raster_backward", plan.smem_bytes, p, f_dim,
+                int(alpha_matmul), plan.entries, plan.ring_rows)
     if check_lists:
         check_tile_lists(gid_sorted, tile_starts, tile_counts, n)
         check_tile_partition(tile_starts, tile_counts, n_inst)
@@ -321,7 +455,7 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             g_depth.data_ptr(), g_final_t.data_ptr(), final_t.data_ptr(),
             n_contrib.data_ptr(), n_tiles, grid.grid_x, grid.tile_w,
             grid.tile_h, f_dim, int(feature_alpha_grad), int(alpha_matmul),
-            out.geom.data_ptr(),
+            plan.entries, plan.ring_rows, out.geom.data_ptr(),
             out.feature.data_ptr(), stream)
     _raise_on(lib, "raster_backward", err)
     if n_tiles and alpha_matmul:

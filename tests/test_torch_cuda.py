@@ -64,7 +64,10 @@ def _check(got, ref):
 
 @pytest.mark.parametrize("f_dim,tile_w,tile_h,boost", [
     (4, 16, 16, 3.0), (128, 16, 16, 3.0), (128, 32, 16, 1.0),
-    (5, 8, 8, 3.0), (0, 16, 16, 1.0), (512, 32, 16, 3.0)])
+    (5, 8, 8, 3.0), (0, 16, 16, 1.0), (512, 32, 16, 3.0),
+    (0, 32, 16, 3.0), (3, 16, 16, 3.0), (3, 32, 16, 1.0), (4, 32, 16, 3.0),
+    (16, 16, 16, 1.0), (16, 32, 16, 3.0), (128, 32, 16, 3.0),
+    (256, 16, 16, 3.0), (256, 32, 16, 1.0), (24, 32, 32, 3.0)])
 def test_kernel_matches_plain(dev, f_dim, tile_w, tile_h, boost):
     from feature3dgs_tpu_torch.ops import cuda_raster
     from feature3dgs_tpu_torch.ops.composite import composite_plain
@@ -79,12 +82,13 @@ def test_kernel_matches_plain(dev, f_dim, tile_w, tile_h, boost):
     assert torch.equal(again.feature, got.feature)   # deterministic
 
 
-def test_kernel_tile_base_row_wrap(dev):
+@pytest.mark.parametrize("f_dim,tile_w", [(8, 16), (128, 32)])
+def test_kernel_tile_base_row_wrap(dev, f_dim, tile_w):
     """A slice of tiles offset by tile_base, and a second stacked image
     (tile_base = T), composite image-local pixels like the plain version."""
     from feature3dgs_tpu_torch.ops import cuda_raster
     from feature3dgs_tpu_torch.ops.composite import composite_plain
-    ci = _inputs(dev, 8, 16, 16, 3.0)
+    ci = _inputs(dev, f_dim, tile_w, 16, 3.0)
     for base in (3, ci.grid.num_tiles):
         got = cuda_raster.raster_forward_cuda(*ci.args, tile_base=base)
         ref = composite_plain(*ci.args, chunk=16, tile_base=base)
@@ -127,9 +131,9 @@ def _norm_err(got, ref):
     return float((got - ref).abs().max()) / s
 
 
-def _backward_inputs(dev, f_dim, seed=0):
+def _backward_inputs(dev, f_dim, seed=0, tile_w=16):
     from feature3dgs_tpu_torch.ops import cuda_raster
-    ci = _inputs(dev, f_dim, 16, 16, 3.0)
+    ci = _inputs(dev, f_dim, tile_w, 16, 3.0)
     fwd = cuda_raster.raster_forward_cuda(*ci.args)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     cts = [torch.randn(x.shape, generator=gen).to(dev)
@@ -137,16 +141,19 @@ def _backward_inputs(dev, f_dim, seed=0):
     return ci, (*cts, fwd.final_T, fwd.n_contrib)
 
 
-@pytest.mark.parametrize("f_dim,fag", [(4, False), (4, True), (128, False),
-                                       (128, True), (512, False), (512, True)])
-def test_backward_kernel_matches_plain(dev, f_dim, fag):
+@pytest.mark.parametrize("f_dim,fag,tile_w", [
+    (4, False, 16), (4, True, 16), (128, False, 16), (128, True, 16),
+    (512, False, 16), (512, True, 16), (0, False, 16), (0, False, 32),
+    (3, False, 16), (3, True, 32), (16, True, 32), (128, False, 32),
+    (128, True, 32), (256, False, 16), (256, False, 32)])
+def test_backward_kernel_matches_plain(dev, f_dim, fag, tile_w):
     """Per-entry rows and per-Gaussian gradients against the plain version;
     rows first filled with NaN all get written; two runs are bit-equal."""
     from feature3dgs_tpu_torch.ops import cuda_raster
     from feature3dgs_tpu_torch.ops.composite import (BackwardRows,
                                                      composite_plain_backward)
     from feature3dgs_tpu_torch.ops.segment import SegmentPlan
-    ci, rest = _backward_inputs(dev, f_dim)
+    ci, rest = _backward_inputs(dev, f_dim, tile_w=tile_w)
     n_inst = ci.bins.gid_sorted.shape[0]
     poisoned = BackwardRows(
         torch.full((n_inst, 10), float("nan"), device=dev),
@@ -165,14 +172,165 @@ def test_backward_kernel_matches_plain(dev, f_dim, fag):
         assert _norm_err(got.geom[:, a:b], ref.geom[:, a:b]) <= 5e-6, name
         assert _norm_err(plan.sum(got.geom[:, a:b]),
                          plan.sum(ref.geom[:, a:b])) <= 5e-6, name
-    assert _norm_err(got.feature, ref.feature) <= 5e-6
-    assert _norm_err(plan.sum(got.feature), plan.sum(ref.feature)) <= 5e-6
+    if f_dim:
+        assert _norm_err(got.feature, ref.feature) <= 5e-6
+        assert _norm_err(plan.sum(got.feature), plan.sum(ref.feature)) <= 5e-6
     again = cuda_raster.raster_backward_cuda(*ci.args, *rest,
                                              feature_alpha_grad=fag)
     assert torch.equal(again.geom, got.geom)
     assert torch.equal(again.feature, got.feature)
     assert torch.equal(SegmentPlan(ci.bins.gid_sorted, ci.args[0].shape[0])
                        .sum(again.feature), plan.sum(got.feature))
+
+
+def _screen_lists(dev, f_dim, tile_w, tile_h, lengths, seed=0,
+                  saturating=()):
+    """One row of tiles with per-tile lists of the given lengths, splats
+    straight in screen space inside their tile. Tiles in ``saturating`` get
+    broad splats of opacity 0.9 that end every pixel within a few entries
+    (not 0.99: at the alpha clamp 1 / (1 - alpha) = 100 multiplies the f32
+    rounding of the two summation orders past the 5e-6 bar)."""
+    from feature3dgs_tpu_torch.ops.binning import TileGrid
+    rng = np.random.RandomState(seed)
+    n_tiles = len(lengths)
+    grid = TileGrid(width=tile_w * n_tiles, height=tile_h, tile_w=tile_w,
+                    tile_h=tile_h)
+    xy, conic, opacity = [], [], []
+    for t, n in enumerate(lengths):
+        sat = t in saturating
+        xy.append(np.stack([rng.uniform(t * tile_w, (t + 1) * tile_w, n),
+                            rng.uniform(0, tile_h, n)], 1))
+        s2 = rng.uniform(200.0, 400.0, n) if sat else rng.uniform(4.0, 40.0, n)
+        conic.append(np.stack([1.0 / s2, rng.uniform(-0.2, 0.2, n) / s2,
+                               1.0 / rng.permutation(s2)], 1))
+        opacity.append(np.full(n, 0.9) if sat else rng.uniform(0.05, 0.9, n))
+    total = int(sum(lengths))
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    counts = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    return (f32(np.concatenate(xy)), f32(np.concatenate(conic)),
+            f32(np.concatenate(opacity)), f32(rng.rand(total, 3)),
+            f32(rng.uniform(1, 5, total)), f32(rng.randn(total, f_dim)),
+            torch.randperm(total, generator=torch.Generator().manual_seed(
+                seed)).to(torch.int32).to(dev), starts, counts, grid)
+
+
+def _check_both_kernels(dev, args, alpha_matmul, fag=False, tile_base=0):
+    """Forward and backward kernels against the plain versions on ``args``
+    (exact mode at the exact bars, alpha_matmul at its own), every poisoned
+    row written, two launches bit-equal. Returns the forward output."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.composite import (BackwardRows,
+                                                     composite_plain,
+                                                     composite_plain_backward)
+    f_dim, n_inst = args[5].shape[1], args[6].shape[0]
+    got = cuda_raster.raster_forward_cuda(*args, tile_base=tile_base,
+                                          alpha_matmul=alpha_matmul)
+    ref = composite_plain(*args, chunk=32, tile_base=tile_base,
+                          alpha_matmul=alpha_matmul)
+    if alpha_matmul:
+        for k, tol in (("color", 1e-4), ("feature", 1e-4), ("final_T", 1e-4),
+                       ("depth", 5e-4)):
+            if getattr(got, k).numel():
+                assert float((getattr(got, k) - getattr(ref, k)).abs().max()) \
+                    <= tol, k
+        diff = (got.n_contrib - ref.n_contrib).abs()
+        assert float((diff > 0).float().mean()) < 0.01 and int(diff.max()) <= 1
+    else:
+        _check(got, ref)
+    again = cuda_raster.raster_forward_cuda(*args, tile_base=tile_base,
+                                            alpha_matmul=alpha_matmul)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if tile_base:
+        return got
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    rest = (*[torch.randn(x.shape, generator=gen).to(dev)
+              for x in (got.color, got.feature, got.depth, got.final_T)],
+            got.final_T, got.n_contrib)
+    poisoned = BackwardRows(
+        torch.full((n_inst, 10), float("nan"), device=dev),
+        torch.full((n_inst, f_dim), float("nan"), device=dev))
+    rows = cuda_raster.raster_backward_cuda(
+        *args, *rest, feature_alpha_grad=fag, alpha_matmul=alpha_matmul,
+        out=poisoned)
+    want = composite_plain_backward(*args, *rest, chunk=32,
+                                    feature_alpha_grad=fag,
+                                    alpha_matmul=alpha_matmul)
+    torch.cuda.synchronize()
+    assert not rows.geom.isnan().any() and not rows.feature.isnan().any()
+    tol = 1e-4 if alpha_matmul else 5e-6
+    if alpha_matmul and args[9].tile_w > 16:
+        tol *= (args[9].tile_w / 16) ** 2
+    for name, a, b in GROUPS:
+        if float(want.geom[:, a:b].abs().max()) > 0:
+            assert _norm_err(rows.geom[:, a:b], want.geom[:, a:b]) <= tol, name
+    if f_dim and float(want.feature.abs().max()) > 0:
+        assert _norm_err(rows.feature, want.feature) <= tol
+    rows2 = cuda_raster.raster_backward_cuda(
+        *args, *rest, feature_alpha_grad=fag, alpha_matmul=alpha_matmul)
+    assert torch.equal(rows2.geom, rows.geom)
+    assert torch.equal(rows2.feature, rows.feature)
+    return got
+
+
+@pytest.mark.parametrize("alpha_matmul", [False, True])
+@pytest.mark.parametrize("f_dim,tile_w", [(0, 16), (3, 32), (4, 16),
+                                          (16, 32), (128, 16), (128, 32),
+                                          (256, 32)])
+def test_list_lengths_around_the_chunk(dev, f_dim, tile_w, alpha_matmul):
+    """Lists of 0, 1, 31, 32, 33, 64, 65 and 230 entries (the kernels walk
+    32 at a time and the backward stages 64), side by side."""
+    args = _screen_lists(dev, f_dim, tile_w, 16,
+                         [0, 1, 31, 32, 33, 64, 65, 230], seed=f_dim + tile_w)
+    got = _check_both_kernels(dev, args, alpha_matmul)
+    assert int(got.n_contrib[0].max()) == 0 and int(got.n_contrib[-1].max()) > 64
+
+
+@pytest.mark.parametrize("alpha_matmul", [False, True])
+@pytest.mark.parametrize("f_dim,tile_w,fag", [(4, 16, False), (128, 32, False),
+                                              (16, 32, True)])
+def test_saturated_tile_beside_an_empty_one(dev, f_dim, tile_w, fag,
+                                            alpha_matmul):
+    """A tile whose pixels all end within the first chunk of a three-chunk
+    list (the block leaves early; the backward walks one chunk and zero-
+    fills the rest), an empty tile, and an ordinary one."""
+    args = _screen_lists(dev, f_dim, tile_w, 16, [90, 0, 70], seed=7,
+                         saturating=(0,))
+    got = _check_both_kernels(dev, args, alpha_matmul, fag=fag)
+    assert 0 < int(got.n_contrib[0].max()) <= 32
+    assert float(got.final_T[0].max()) < 1e-3
+    assert int(got.n_contrib[1].max()) == 0
+    assert float(got.final_T[1].min()) == 1.0
+
+
+@pytest.mark.parametrize("f_dim,tile_w", [(16, 16), (128, 32)])
+def test_tile_base_on_long_lists(dev, f_dim, tile_w):
+    """tile_base > 0 on lists that span several chunks: the slice starts in
+    the middle of a row and wraps into the next image."""
+    args = _screen_lists(dev, f_dim, tile_w, 16, [40, 100, 33, 5], seed=3)
+    for base in (2, 4, 7):
+        _check_both_kernels(dev, args, False, tile_base=base)
+
+
+@pytest.mark.parametrize("name", ["raster_forward", "raster_backward"])
+@pytest.mark.parametrize("p,f_dim", [(256, 4), (512, 128), (512, 256),
+                                     (1024, 16)])
+def test_plans_agree_with_the_libraries(dev, name, p, f_dim):
+    """The Python launch plan's shared memory is the library's own, and the
+    instantiation it picks fits the card."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    for mm in (False, True):
+        attrs = cuda_raster.kernel_attributes(name, p, f_dim, mm)
+        lib = cuda_raster._library(name)
+        if name == "raster_forward":
+            shape = (attrs["threads"], attrs["channel_tiles"],
+                     attrs["halves"], int(mm))
+        else:
+            shape = (p, f_dim, int(mm), attrs["entries"], attrs["ring_rows"])
+        assert getattr(lib, f"f3dgs_{name}_smem_bytes")(*shape) \
+            == attrs["smem_bytes"]
+        assert attrs["blocks_per_sm"] >= 1 and attrs["registers"] <= 255
 
 
 def test_rasterize_backward_on_the_card(dev):

@@ -27,6 +27,15 @@ Phases, one line each; any failure raises and exits non-zero:
                through renderer.render plus the 128->512 decoder; outputs
                finite, view 0 equal to the plain backend's, one kernel
                launch per view; per-view time and peak memory.
+  serve_batch  the same 8 views through renderer.render_batch at B = 4
+               (two forward launches) and B = 8 (one): color, features,
+               depth, alpha and n_contrib of every view bit-equal to its own
+               renderer.render, again at B = 4 in the alpha_matmul mode;
+               view 0 within the serve bars of the plain version's batch;
+               per-view ms batched and sequential (CUDA events, median of
+               3 after a warm-up), host syncs and peak memory of a view and
+               of a batch of 8; the batched kernel alone at B = 8 in both
+               modes (20 launches) beside its bound summed over the views.
   kernel_bwd_small  the backward compositing kernel against its plain
                version at the test scenes (16x16 tiles, boosted opacities,
                F = 4, 128, 512; feature_alpha_grad also on at F = 4, 128):
@@ -85,14 +94,24 @@ Phases, one line each; any failure raises and exits non-zero:
                round's own ms, host syncs per step, peak memory. Then 10
                steps with alpha_matmul=True from a fresh Trainer.
   train_cli    python -m feature3dgs_tpu_torch.cli.train as a subprocess on
-               a small Blender-style scene (4 frames of 128x128, 16-d
-               teacher maps, 2000 points), 40 iterations with densify
-               rounds, a save and a checkpoint, then the render CLI on the
-               result; the artifact tree and both exit codes.
-Then the card's name and power limit, a {"kernels": [...]} line and, last,
+               a small Blender-style scene (4 train and 2 test frames of
+               128x128, 16-d teacher maps, 2000 points), 40 iterations with
+               densify rounds, a save and a checkpoint; the artifact tree
+               and the exit code.
+  serve_cli    the render and downstream CLIs on that model, as
+               subprocesses, several at once: the render CLI with
+               --render_batch 3 --novel_view --num_views 6 --video, and one
+               view at a time with each edit config (from EDIT_CONFIGS, as
+               JSON) and seeded text features; then the segmentation,
+               segmentation-metric and metrics CLIs on their output; every
+               exit code, the artifact trees, finite scores.
+Then the card's name and power limit, a {"kernels": [...]} line (the two
+forward entries also with batch8_ms and batch8_bound_ms) and, last,
 {"ok": true, "device": {...}}. With --profile DIR, torch.profiler tables of
-two served views and two training steps are written to DIR; --only a,b runs
-just those phases (and prints no result lines).
+two served views, of the 8 views sequential and in a batch of 8 (with the
+device-busy ms and idle share of each) and of two training steps are
+written to DIR; --only a,b runs just those phases (and prints no result
+lines).
 """
 from __future__ import annotations
 
@@ -124,6 +143,20 @@ OPS_BWD_WALKED, OPS_BWD_CONTRIB = 15, 50
 
 N_GAUSS, F_DIM, F_OUT, WIDTH, HEIGHT = 100_000, 128, 512, 1216, 800
 N_VIEWS = 8
+# configs/edit_*.yaml as mappings, so that this check needs no PyYAML (the
+# render CLI reads them as JSON); tests/test_torch_tasks.py holds them equal
+_OBJECTS = ["car", "tree", "building", "sidewalk", "road"]
+EDIT_CONFIGS = {
+    "edit_color": {"edit": {
+        "objects": _OBJECTS, "operations": "color_func",
+        "colorFunc": "lambda color: color[..., [2, 1, 0]]", "targets": "car",
+        "threshold": 0.2}},
+    "edit_deletion": {"edit": {"objects": _OBJECTS, "operations": "deletion",
+                               "targets": "car", "threshold": 0.2}},
+    "edit_extraction": {"edit": {"objects": _OBJECTS,
+                                 "operations": "extraction",
+                                 "targets": "car", "threshold": 0.2}},
+}
 
 
 def say(phase: str, **fields):
@@ -475,6 +508,165 @@ def phase_serve(dev, params, state, profile_dir):
         peak_mem_bytes=peak, instances_view0=int(first[0].total_instances),
         plain_view0_max_abs_err=err)
     return launches
+
+
+BATCH_FIELDS = ("color", "feature", "depth", "alpha", "n_contrib")
+
+
+def phase_serve_batch(dev, params, state, profile_dir):
+    """The serving scene's 8 orbit views through renderer.render_batch at
+    B = 4 (two launches) and B = 8 (one launch), each view bit-equal to its
+    own renderer.render; B = 4 again in the alpha_matmul mode; view 0 of a
+    batch against the plain version's batch; per-view times batched and
+    sequential, host syncs a batch, peak memory; the batched kernel alone at
+    B = 8 in both modes beside its bound (summed over the 8 views)."""
+    import warnings
+
+    import torch
+    from feature3dgs_tpu_torch.model import gaussians as G
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.composite import composite_plain
+    from feature3dgs_tpu_torch.ops.cuda_raster import raster_forward_cuda
+    from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
+                                                     composite_inputs_batch)
+    from feature3dgs_tpu_torch.render import renderer
+
+    cams = [camera(orbit_view(i), WIDTH, HEIGHT, math.tan(0.6),
+                   math.tan(0.45), dev) for i in range(N_VIEWS)]
+    mm_cfg = RasterConfig(alpha_matmul=True)
+
+    def batches(bsz, config=RasterConfig()):
+        return [renderer.render_batch(params, state, cams[i:i + bsz],
+                                      config=config)
+                for i in range(0, N_VIEWS, bsz)]
+
+    def bit_equal(name, outs, singles):
+        views = [(out, k) for out in outs for k in range(out.color.shape[0])]
+        for (out, k), one in zip(views, singles):
+            for f in BATCH_FIELDS:
+                if not torch.equal(getattr(out, f)[k], getattr(one, f)):
+                    raise AssertionError(f"serve_batch {name}: view {k} "
+                                         f"{f} differs from render")
+
+    with torch.inference_mode():
+        cuda_raster.FORWARD_LAUNCHES = cuda_raster.FORWARD_MM_LAUNCHES = 0
+        singles = [renderer.render(params, state, c) for c in cams]
+        singles_mm = [renderer.render(params, state, c, config=mm_cfg)
+                      for c in cams[:4]]
+        launches_per_batch = []
+        for bsz in (4, 8):
+            for i in range(0, N_VIEWS, bsz):
+                before = cuda_raster.FORWARD_LAUNCHES
+                out = renderer.render_batch(params, state, cams[i:i + bsz])
+                launches_per_batch.append(cuda_raster.FORWARD_LAUNCHES - before)
+                bit_equal(f"B={bsz}", [out], singles[i:i + bsz])
+                if bsz == 4 and i == 0:
+                    first = out
+                del out
+        before = cuda_raster.FORWARD_MM_LAUNCHES
+        out_mm = renderer.render_batch(params, state, cams[:4], config=mm_cfg)
+        launches_per_batch.append(cuda_raster.FORWARD_MM_LAUNCHES - before)
+        bit_equal("alpha_matmul B=4", [out_mm], singles_mm)
+        torch.cuda.synchronize()
+        launches = (cuda_raster.FORWARD_LAUNCHES,
+                    cuda_raster.FORWARD_MM_LAUNCHES)
+        if launches_per_batch != [1, 1, 1, 1]:
+            raise AssertionError(f"serve_batch: forward launches per batch "
+                                 f"{launches_per_batch}, expected one each")
+        del out_mm, singles, singles_mm
+        plain = renderer.render_batch(params, state, cams[:4],
+                                      config=RasterConfig(backend="plain"))
+        errs = {f: float((getattr(first, f)[0] - getattr(plain, f)[0])
+                         .abs().max()) for f in ("color", "feature", "alpha",
+                                                  "depth")}
+        mism = int((first.n_contrib[0] != plain.n_contrib[0]).sum())
+        if (max(errs["color"], errs["feature"], errs["alpha"]) > 1e-4
+                or errs["depth"] > 1e-3
+                or mism > 1e-4 * first.n_contrib[0].numel()):
+            raise AssertionError(f"serve_batch: view 0 differs from the plain "
+                                 f"batch: {errs}, n_contrib {mism}")
+        del first, plain
+
+        def per_view_ms(fn):
+            fn()
+            times = []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end) / N_VIEWS)
+            return statistics.median(times)
+
+        seq_ms = per_view_ms(lambda: [renderer.render(params, state, c)
+                                      for c in cams])
+        b4_ms = per_view_ms(lambda: batches(4))
+        b8_ms = per_view_ms(lambda: batches(8))
+
+        def syncs_and_peak(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            return (sum("synchronizing CUDA operation" in str(w.message)
+                        for w in caught), torch.cuda.max_memory_allocated())
+
+        syncs_view, peak_view = syncs_and_peak(
+            lambda: renderer.render(params, state, cams[0]))
+        syncs_b8, peak_b8 = syncs_and_peak(lambda: batches(8))
+        if profile_dir:
+            # device-busy ms of the 8 views against their unprofiled time
+            busy = {name: write_profile(
+                profile_dir, f"serve_batch_{name}_profile.txt", fn) / N_VIEWS
+                for name, fn in (
+                    ("sequential", lambda: [renderer.render(params, state, c)
+                                            for c in cams]),
+                    ("batch8", lambda: batches(8)))}
+            say("serve_batch_profile",
+                device_busy_ms_per_view=json.dumps(
+                    {k: round(v, 3) for k, v in busy.items()}).replace(" ", ""),
+                idle_share_sequential=f"{1 - busy['sequential'] / seq_ms:.3f}",
+                idle_share_batch8=f"{1 - busy['batch8'] / b8_ms:.3f}")
+
+        ci = composite_inputs_batch(
+            params.xyz, torch.where(state.alive, G.get_opacity(params),
+                                    torch.zeros((), device=dev)),
+            G.get_semantic(params), cams, scales=G.get_scaling(params),
+            rotations=G.get_rotation(params), shs=G.get_features(params),
+            sh_degree=state.active_sh_degree, active_mask=state.alive)
+        n = params.xyz.shape[0]
+        stats: dict = {}
+        composite_plain(*ci.args, chunk=128, n_per_camera=n, stats=stats)
+        kernel_ms = {mm: cuda_ms(lambda: raster_forward_cuda(
+            *ci.args, n_per_camera=n, alpha_matmul=mm), 20)
+            for mm in (False, True)}
+        n_bytes, ops, _, _ = forward_bound(stats, ci.grid.num_tiles * N_VIEWS,
+                                           ci.grid.pixels_per_tile)
+    bound = bound_fields(n_bytes, ops)
+    say("serve_batch", views=N_VIEWS, launches_per_batch=launches_per_batch,
+        bit_equal="B=4,B=8,alpha_matmul B=4",
+        plain_view0_max_abs_err=json.dumps(errs).replace(" ", ""),
+        plain_view0_n_contrib_mismatches=mism,
+        view_ms_sequential=f"{seq_ms:.3f}", view_ms_batch4=f"{b4_ms:.3f}",
+        view_ms_batch8=f"{b8_ms:.3f}", host_syncs_view=syncs_view,
+        host_syncs_batch8=syncs_b8, peak_mem_bytes_view=peak_view,
+        peak_mem_bytes_batch8=peak_b8,
+        instances_batch8=int(ci.bins.total.sum()),
+        batch8_kernel_ms=f"{kernel_ms[False]:.4f}",
+        batch8_kernel_mm_ms=f"{kernel_ms[True]:.4f}",
+        batch8_bound_ms=f"{bound['bound_ms']:.4f}",
+        batch8_bound_by=bound["bound_by"])
+    return launches, {mm: {"batch8_ms": kernel_ms[mm],
+                           "batch8_bound_ms": bound["bound_ms"]}
+                      for mm in (False, True)}
 
 
 def norm_err(got, ref) -> float:
@@ -1353,41 +1545,52 @@ def phase_train_loop(dev, scene, scene_s):
     return launches, mm_launches
 
 
-def phase_train_cli():
-    """The train CLI, then the render CLI on its output, as subprocesses."""
+def run_clis(phase, cmds, timeout=300):
+    """Run ``{name: argv}`` CLI subprocesses together from the checkout;
+    returns {name: seconds} and raises on any exit code but 0."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", *argv], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, argv in cmds.items()}
+    seconds, failed = {}, []
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name} exited {proc.returncode}:\n{out[-2000:]}\n"
+                          f"{err[-4000:]}")
+    if failed:
+        raise AssertionError(f"{phase}: " + "\n".join(failed))
+    return seconds
+
+
+def phase_train_cli(work):
+    """The train CLI as a subprocess (serve_cli renders its output).
+    Returns the trained model's folder and the scene's."""
     import shutil
 
     from feature3dgs_tpu_torch.data.synthetic import write_blender_scene
-    work = os.path.join(ROOT, "build", "smoke", "cli")
     shutil.rmtree(work, ignore_errors=True)
     scene = write_blender_scene(os.path.join(work, "scene"), n_frames=4,
-                                size=128, f_dim=16, n_pts=2000, seed=0)
+                                size=128, f_dim=16, n_pts=2000, seed=0,
+                                n_test=2)
     out = os.path.join(work, "out")
-    base = [sys.executable, "-m"]
-    train = base + [
+    train = [
         "feature3dgs_tpu_torch.cli.train", "-s", scene, "-m", out, "-f",
-        "lseg", "--iterations", "40", "--densify_from_iter", "5",
+        "lseg", "--eval", "--iterations", "40", "--densify_from_iter", "5",
         "--densification_interval", "10", "--opacity_reset_interval", "30",
         "--densify_grad_threshold", "1e-7", "--save_iterations", "20",
         "--checkpoint_iterations", "30", "--test_iterations", "40",
         "--sync_every", "10"]
-    render = base + ["feature3dgs_tpu_torch.cli.render", "-m", out,
-                     "--iteration", "40"]
-    seconds = []
-    for cmd in (train, render):
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=300)
-        seconds.append(time.perf_counter() - t0)
-        if proc.returncode != 0:
-            raise AssertionError(f"train_cli: {' '.join(cmd[2:4])} exited "
-                                 f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
-                                 f"{proc.stderr[-4000:]}")
+    seconds = run_clis("train_cli", {"train": train})["train"]
     expect = ["point_cloud/iteration_20/point_cloud.ply",
               "point_cloud/iteration_40/point_cloud.ply", "cfg_args",
               "cameras.json", "train_log.jsonl", "chkpnt30.ckpt",
-              "chkpnt30.meta.json", "train/ours_40/renders/00003.png",
-              "train/ours_40/saved_feature/00003_fmap_CxHxW.npy"]
+              "chkpnt30.meta.json"]
     missing = [f for f in expect if not os.path.exists(os.path.join(out, f))]
     with open(os.path.join(out, "train_log.jsonl")) as f:
         last = json.loads(f.read().strip().splitlines()[-1])
@@ -1395,30 +1598,112 @@ def phase_train_cli():
             or not last["num_active"] > 2000):
         raise AssertionError(f"train_cli: missing {missing}, last log line "
                              f"{last}")
-    say("train_cli", train_s=f"{seconds[0]:.1f}", render_s=f"{seconds[1]:.1f}",
-        exit_codes="0,0", iterations=last["iteration"],
+    say("train_cli", train_s=f"{seconds:.1f}", exit_code=0,
+        iterations=last["iteration"],
         loss=f"{last['loss']:.5f}", points_start=2000,
         points_end=int(last["num_active"]), artifacts=len(expect))
-    shutil.rmtree(work, ignore_errors=True)
+    return out, scene
 
 
-def write_profile(out_dir, name, fn):
+def phase_serve_cli(work, out, scene):
+    """The render CLI and the downstream CLIs on train_cli's model, as
+    subprocesses: the render CLI with --render_batch 3 --novel_view
+    --num_views 6 --video and, beside it, once with each edit config
+    (written as JSON from EDIT_CONFIGS) and seeded text features, one view
+    at a time as by default; then the segmentation, segmentation-metric and
+    metrics CLIs on their output. Every exit code, the artifact trees, and
+    finite metrics."""
+    labels = ",".join(_OBJECTS)
+    text = os.path.join(work, "text.npy")
+    np.save(text, np.random.RandomState(0).randn(len(_OBJECTS), 16)
+            .astype(np.float32))
+    render = ["feature3dgs_tpu_torch.cli.render", "-m", out, "--iteration",
+              "40"]
+    first = {"render_batch": render + ["--render_batch", "3", "--novel_view",
+                                       "--num_views", "6", "--video"]}
+    for name, mapping in EDIT_CONFIGS.items():
+        path = os.path.join(work, name + ".json")
+        with open(path, "w") as f:
+            json.dump(mapping, f)
+        first[name] = render + ["--edit_config", path, "--text_features",
+                                text]
+    seconds = run_clis("serve_cli", first)
+    base = os.path.join(out, "train", "ours_40")
+    seg_out = os.path.join(work, "segmentation")
+    metric_json = os.path.join(work, "segmentation_metric.json")
+    seconds.update(run_clis("serve_cli", {
+        "segmentation": [
+            "feature3dgs_tpu_torch.cli.segmentation", "--feature_dir",
+            os.path.join(base, "saved_feature"), "--output", seg_out,
+            "--label_src", labels, "--text_features", text, "--image_dir",
+            os.path.join(base, "renders")],
+        "segmentation_metric": [
+            "feature3dgs_tpu_torch.cli.segmentation_metric", "--student_dir",
+            os.path.join(base, "saved_feature"), "--teacher_dir",
+            os.path.join(scene, "rgb_feature_langseg"), "--label_src", labels,
+            "--text_features", text, "--output", metric_json],
+        "metrics": ["feature3dgs_tpu_torch.cli.metrics", "-m", out]}))
+    edits = [f"ours_40_{op}_car" for op in ("color_func", "deletion",
+                                             "extraction")]
+    expect = ([f"{s}/ours_40/renders/{i:05d}.png" for s, n in
+               (("train", 4), ("test", 2), ("novel_views", 6), ("video", 6))
+               for i in range(n)]
+              + [f"{s}/ours_40/saved_feature/00003_fmap_CxHxW.{x}"
+                 for s in ("train", "video") for x in ("npy", "pt")]
+              + [f"{s}/{e}/renders/{i:05d}.png" for e in edits
+                 for s, n in (("train", 4), ("test", 2)) for i in range(n)]
+              + ["results.json", "per_view.json"])
+    missing = [f for f in expect if not os.path.exists(os.path.join(out, f))]
+    missing += [f for f in (f"{i:05d}{x}" for i in range(4) for x in (
+        "_labels.npy", "_mask.png", "_vis.png", "_legend.png"))
+        if not os.path.exists(os.path.join(seg_out, f))]
+    with open(os.path.join(out, "results.json")) as f:
+        results = json.load(f)
+    with open(metric_json) as f:
+        seg_metric = json.load(f)
+    scores = [v for m in results.values() for k, v in m.items()
+              if k != "LPIPS"] + [seg_metric["mean_accuracy"],
+                                  seg_metric["mean_miou"]]
+    if (missing or sorted(results) != sorted(["ours_40"] + edits)
+            or not all(math.isfinite(v) for v in scores)
+            # each view's .npy and .pt both pair with a teacher, in sorted
+            # order, as scripts/segmentation_metric.py pairs them: 6 rows
+            or len(seg_metric["per_image"]) != 6):
+        raise AssertionError(f"serve_cli: missing {missing}, results "
+                             f"{results}, segmentation metric {seg_metric}")
+    say("serve_cli", exit_codes="0," * 6 + "0",
+        seconds=json.dumps({k: round(v, 1) for k, v in seconds.items()})
+        .replace(" ", ""), artifacts=len(expect),
+        psnr_test=f"{results['ours_40']['PSNR']:.3f}",
+        ssim_test=f"{results['ours_40']['SSIM']:.4f}",
+        lpips=results["ours_40"]["LPIPS"],
+        segmentation_accuracy=f"{seg_metric['mean_accuracy']:.4f}")
+
+
+def write_profile(out_dir, name, fn) -> float:
+    """Profile fn() into DIR/name; returns the device-busy ms it recorded
+    (the sum of every op's own device time)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=30)
     with open(os.path.join(out_dir, name), "w") as f:
         f.write(table)
+    # the device's own events (kernels, copies), as the table's footer sums
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="",
-                    help="directory for profiler tables of two served views "
-                    "and two training steps")
+                    help="directory for profiler tables of the served views "
+                    "(one by one and batched) and two training steps")
     ap.add_argument("--only", default="",
                     help="comma-separated phases to run alone (for finding "
                     "faults; prints no kernels or ok line)")
@@ -1464,6 +1749,9 @@ def main(argv=None) -> int:
         full = phase_kernel_full(dev, params, state)
     if want("serve"):
         serve_launches = phase_serve(dev, params, state, args.profile)
+    if want("serve_batch"):
+        batch_launches, at_batch = phase_serve_batch(dev, params, state,
+                                                     args.profile)
     if want("kernel_bwd_small"):
         phase_kernel_bwd_small(dev)
     if want("kernel_bwd_full"):
@@ -1484,8 +1772,13 @@ def main(argv=None) -> int:
         at_loop = phase_kernel_loop(dev, scene)
     if want("train_loop"):
         loop, loop_mm = phase_train_loop(dev, scene, scene_s)
-    if want("train_cli"):
-        phase_train_cli()
+    if want("train_cli") or want("serve_cli"):
+        import shutil
+        work = os.path.join(ROOT, "build", "smoke", "cli")
+        out, scene = phase_train_cli(work)
+        if want("serve_cli"):
+            phase_serve_cli(work, out, scene)
+        shutil.rmtree(work, ignore_errors=True)
 
     print(card_line())
     if only:
@@ -1495,16 +1788,17 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         dict(name="raster_forward", route="cuda",
              source=src + "raster_forward.cu", replaces=tpu + "192",
-             launches=serve_launches + train_fwd + loop[0], **full,
-             library_ms=None, **at_loop[("fwd", False)]),
+             launches=serve_launches + batch_launches[0] + train_fwd
+             + loop[0], **full, library_ms=None, **at_loop[("fwd", False)],
+             **at_batch[False]),
         dict(name="raster_backward", route="cuda",
              source=src + "raster_backward.cu", replaces=tpu + "495",
              launches=train_bwd + loop[1], **bwd, library_ms=None,
              **at_loop[("bwd", False)]),
         dict(name="raster_forward_alpha_mm", route="cuda",
              source=src + "raster_forward.cu", replaces=tpu + "302",
-             launches=loop_mm[0], **full_mm, library_ms=None,
-             **at_loop[("fwd", True)]),
+             launches=batch_launches[1] + loop_mm[0], **full_mm,
+             library_ms=None, **at_loop[("fwd", True)], **at_batch[True]),
         dict(name="raster_backward_alpha_mm", route="cuda",
              source=src + "raster_backward.cu", replaces=tpu + "671",
              launches=loop_mm[1], **bwd_mm, library_ms=None,

@@ -23,13 +23,17 @@ Layout (module names follow ``feature3dgs_tpu`` where that helps a reader
 find the counterpart):
   core/      camera transforms, SH, EWA projection
   ops/       binning, plain compositor forward and backward, CUDA kernel
-             wrappers, segment-sum, rasterize (autograd Function)
+             wrappers, segment-sum, rasterize (autograd Function) and the
+             forward-only rasterize_batch
   model/     Gaussian parameters, decoder, PLY I/O, Adam, densification
-             statistics
-  data/      PLY codec, cameras, COLMAP / Blender loaders
-  render/    renderer binding, render modes
-  train/     losses and the feature resize; train_step; decoder checkpoints
-  cli/       render CLI (python -m feature3dgs_tpu_torch.cli.render)
+  data/      PLY codec, cameras, COLMAP / Blender loaders, synthetic scenes
+  render/    renderer binding (render, render_batch), render and viewer
+             modes, novel-view paths, language-guided editing
+  tasks/     segmentation, ADE20K labels, CLIP text embeddings
+  metrics/   LPIPS (VGG16)
+  train/     losses, train_step and the Trainer, checkpoints
+  cli/       train, render, segmentation, segmentation_metric, metrics and
+             full_eval (python -m feature3dgs_tpu_torch.cli.<name>)
 """
 from __future__ import annotations
 

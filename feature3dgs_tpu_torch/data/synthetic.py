@@ -46,42 +46,54 @@ def synthetic_scene(n_cams=6, w=64, h=48, n_pts=256, f_dim=8, seed=0
 
 def write_blender_scene(path: str, *, n_frames: int = 4, size: int = 128,
                         f_dim: int = 16, n_pts: int = 2000, seed: int = 0,
-                        feature_dir: str = "rgb_feature_langseg") -> str:
+                        feature_dir: str = "rgb_feature_langseg",
+                        n_test: int = 0) -> str:
     """Write a Blender-style scene into ``path``: ``transforms_train.json``
     (cameras on a circle of radius 4 looking at the origin),
     ``train/r_i.png`` (a smooth colour pattern per frame), CHW float32
     teacher maps ``<feature_dir>/r_i_fmap_CxHxW.npy`` at half resolution
     and a ``points3d.ply`` of ``n_pts`` random points in [-1.3, 1.3]^3.
-    Returns ``path``."""
+    ``n_test`` > 0 adds ``transforms_test.json`` with frames ``test/t_i``
+    half-way between the train cameras (their teacher maps from seed + 1,
+    so the train split does not depend on it). Returns ``path``."""
     from PIL import Image
 
     from feature3dgs_tpu_torch.data.ply import write_ply
     rng = np.random.RandomState(seed)
-    os.makedirs(os.path.join(path, "train"), exist_ok=True)
     os.makedirs(os.path.join(path, feature_dir), exist_ok=True)
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
-    frames = []
-    for i in range(n_frames):
-        ang = 2.0 * math.pi * i / n_frames
-        # OpenGL camera-to-world: the camera sits on the circle, its -z axis
-        # points at the origin, +y is up
-        eye = np.array([4.0 * math.sin(ang), 0.0, 4.0 * math.cos(ang)])
-        z = eye / np.linalg.norm(eye)
-        x = np.cross([0.0, 1.0, 0.0], z)
-        x /= np.linalg.norm(x)
-        c2w = np.eye(4)
-        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = x, np.cross(z, x), z, eye
-        frames.append({"file_path": f"train/r_{i}",
-                       "transform_matrix": c2w.tolist()})
-        img = np.stack([0.5 + 0.5 * np.sin(6.0 * xx + i),
-                        0.5 + 0.5 * np.cos(5.0 * yy - i), xx * yy], -1)
-        Image.fromarray((img * 255).astype(np.uint8)).save(
-            os.path.join(path, "train", f"r_{i}.png"))
-        np.save(os.path.join(path, feature_dir, f"r_{i}_fmap_CxHxW.npy"),
-                (rng.randn(f_dim, size // 2, size // 2) * 0.1).astype(
-                    np.float32))
-    with open(os.path.join(path, "transforms_train.json"), "w") as f:
-        json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+
+    def write_split(split, prefix, n, offset, draw):
+        os.makedirs(os.path.join(path, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            ang = 2.0 * math.pi * (i + offset) / max(n_frames, 1)
+            # OpenGL camera-to-world: the camera sits on the circle, its -z
+            # axis points at the origin, +y is up
+            eye = np.array([4.0 * math.sin(ang), 0.0, 4.0 * math.cos(ang)])
+            z = eye / np.linalg.norm(eye)
+            x = np.cross([0.0, 1.0, 0.0], z)
+            x /= np.linalg.norm(x)
+            c2w = np.eye(4)
+            c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = (
+                x, np.cross(z, x), z, eye)
+            frames.append({"file_path": f"{split}/{prefix}_{i}",
+                           "transform_matrix": c2w.tolist()})
+            img = np.stack([0.5 + 0.5 * np.sin(6.0 * xx + i + offset),
+                            0.5 + 0.5 * np.cos(5.0 * yy - i - offset),
+                            xx * yy], -1)
+            Image.fromarray((img * 255).astype(np.uint8)).save(
+                os.path.join(path, split, f"{prefix}_{i}.png"))
+            np.save(os.path.join(path, feature_dir,
+                                 f"{prefix}_{i}_fmap_CxHxW.npy"),
+                    (draw.randn(f_dim, size // 2, size // 2) * 0.1).astype(
+                        np.float32))
+        with open(os.path.join(path, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+
+    write_split("train", "r", n_frames, 0, rng)
+    if n_test:
+        write_split("test", "t", n_test, 0.5, np.random.RandomState(seed + 1))
     xyz = rng.uniform(-1.3, 1.3, (n_pts, 3)).astype(np.float32)
     rgb = (rng.rand(n_pts, 3) * 255).astype(np.uint8)
     zeros = np.zeros(n_pts, np.float32)

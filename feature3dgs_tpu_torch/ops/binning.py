@@ -6,7 +6,10 @@ members in the same stable (tile, depth) order as the JAX package's: one
 stable ``torch.sort`` on the int64 key ``tile << 32 | float_bits(depth)``
 does it, because valid depths are > 0.2, where the float bits are monotone
 (the original radix-sort key, rasterizer_impl.cu:104). Capacity overflow
-drops whole Gaussians, highest index first, as in the JAX package.
+drops whole Gaussians, highest index first, as in the JAX package. Several
+cameras bin in one sort (``bin_gaussians_batch``: the tile key gains the
+camera, ``b * T + tile``), with the capacity applied per camera as the JAX
+package's vmap of ``bin_gaussians`` does (rasterize.py:364-369).
 
 The JAX package's per-tile 8-row filler entries and multiple-of-128 slab
 capacity exist for TPU DMA alignment; the port has neither, so its
@@ -46,56 +49,67 @@ class TileGrid(NamedTuple):
 
 class BinningResult(NamedTuple):
     gid_sorted: torch.Tensor   # [L] int32 Gaussian ids in (tile, depth) order
-    tile_starts: torch.Tensor  # [T] int32 offsets into gid_sorted
-    tile_counts: torch.Tensor  # [T] int32 list lengths (after the capacity cap)
-    total: torch.Tensor        # scalar int64: instances before the cap
-    num_tiles_touched: torch.Tensor  # [N] int32 per-Gaussian rect area
+    tile_starts: torch.Tensor  # [T] ([B*T]) int32 offsets into gid_sorted
+    tile_counts: torch.Tensor  # [T] ([B*T]) int32 list lengths (after the cap)
+    total: torch.Tensor        # int64 instances before the cap: scalar, [B] batched
+    num_tiles_touched: torch.Tensor  # [N] ([B,N]) int32 per-Gaussian rect area
 
 
 def expand_instances(rect_min: torch.Tensor, rect_max: torch.Tensor,
                      valid: torch.Tensor, grid: TileGrid, *,
                      instance_capacity: int):
     """One (Gaussian, tile) instance per tile of each valid Gaussian's rect,
-    Gaussian-major and row-major within the rect (``duplicateWithKeys``).
+    for B cameras at once: camera-major, then Gaussian-major and row-major
+    within the rect (``duplicateWithKeys``).
 
-    Returns (gid [L] int64, tile [L] int64, areas [N] int64, total scalar).
-    Gaussians whose instances would end beyond ``instance_capacity`` are
-    dropped whole; ``total`` counts instances before that cap."""
-    widths = (rect_max[:, 0] - rect_min[:, 0]).long()
-    heights = (rect_max[:, 1] - rect_min[:, 1]).long()
+    rect_min/rect_max [B,N,2], valid [B,N]. Returns (row [L] int64 = b * N
+    + Gaussian id, tile [L] int64 = b * T + the camera's tile, areas [B,N]
+    int64, total [B]). The capacity is each camera's own: a camera keeps
+    the prefix of its Gaussians whose instances fit in ``instance_capacity``
+    and drops the rest whole; ``total`` counts instances before that cap."""
+    n = valid.shape[1]
+    widths = (rect_max[..., 0] - rect_min[..., 0]).long()
+    heights = (rect_max[..., 1] - rect_min[..., 1]).long()
     areas = torch.where(valid, widths * heights, torch.zeros_like(widths))
-    incl = torch.cumsum(areas, 0)
-    total = incl[-1] if incl.numel() else areas.sum()
-    # incl is monotone, so the Gaussians that fit are a prefix
+    incl = torch.cumsum(areas, 1)
+    total = incl[:, -1] if n else areas.sum(1)
+    # incl is monotone, so the Gaussians that fit are a prefix per camera
     kept = torch.where(incl <= instance_capacity, areas,
-                       torch.zeros_like(areas))
-    n = areas.shape[0]
-    gid = torch.repeat_interleave(
-        torch.arange(n, device=areas.device), kept)
-    local = (torch.arange(gid.shape[0], device=areas.device)
-             - (incl - areas)[gid])
-    w_g = widths[gid]
-    ty = rect_min[gid, 1].long() + local // w_g
-    tx = rect_min[gid, 0].long() + local % w_g
-    tile = ty * grid.grid_x + tx
-    return gid, tile, areas, total
+                       torch.zeros_like(areas)).reshape(-1)
+    row = torch.repeat_interleave(
+        torch.arange(kept.shape[0], device=areas.device), kept)
+    local = (torch.arange(row.shape[0], device=areas.device)
+             - (torch.cumsum(kept, 0) - kept)[row])
+    w_g = widths.reshape(-1)[row]
+    rmin = rect_min.reshape(-1, 2)
+    ty = rmin[row, 1].long() + local // w_g
+    tx = rmin[row, 0].long() + local % w_g
+    tile = (row // max(n, 1)) * grid.num_tiles + ty * grid.grid_x + tx
+    return row, tile, areas, total
 
 
-def bin_gaussians(rect_min: torch.Tensor, rect_max: torch.Tensor,
-                  depth: torch.Tensor, valid: torch.Tensor, grid: TileGrid, *,
-                  instance_capacity: int) -> BinningResult:
-    """Depth-sorted per-tile Gaussian lists in one flat array.
+def bin_gaussians_batch(rect_min: torch.Tensor, rect_max: torch.Tensor,
+                        depth: torch.Tensor, valid: torch.Tensor,
+                        grid: TileGrid, *,
+                        instance_capacity: int) -> BinningResult:
+    """Depth-sorted per-tile lists of B cameras in one flat array.
 
-    rect_min/rect_max: [N,2] int32 tile rectangles (max exclusive) from
-    core.projection.tile_rect; depth: [N] view-space z (> 0.2 where valid);
-    valid: [N] bool."""
-    gid, tile, areas, total = expand_instances(
+    rect_min/rect_max [B,N,2] int32 tile rectangles, depth [B,N], valid
+    [B,N]. One stable sort on ``(b * T + tile) << 32 | depth_bits`` makes
+    one camera-major list over B * T tiles: ``tile_starts``/``tile_counts``
+    are [B * T], ``total`` and ``num_tiles_touched`` per camera ([B],
+    [B,N]); the ids in ``gid_sorted`` stay per-camera ids in [0, N). Each
+    tile's list is, entry for entry, the one ``bin_gaussians`` gives for
+    that camera alone: a camera's instances keep their own order, and the
+    stable sort keeps it among equal keys."""
+    b, n = valid.shape
+    row, tile, areas, total = expand_instances(
         rect_min, rect_max, valid, grid, instance_capacity=instance_capacity)
-    depth_bits = depth.to(torch.float32).view(torch.int32).long()[gid]
-    key = (tile << 32) | depth_bits
+    depth_bits = depth.to(torch.float32).view(torch.int32).long().reshape(-1)
+    key = (tile << 32) | depth_bits[row]
     _, order = torch.sort(key, stable=True)
-    gid_sorted = gid[order].to(torch.int32)
-    counts = torch.bincount(tile, minlength=grid.num_tiles)
+    gid_sorted = (row[order] % max(n, 1)).to(torch.int32)
+    counts = torch.bincount(tile, minlength=b * grid.num_tiles)
     starts = torch.cumsum(counts, 0) - counts
     return BinningResult(
         gid_sorted=gid_sorted,
@@ -104,3 +118,18 @@ def bin_gaussians(rect_min: torch.Tensor, rect_max: torch.Tensor,
         total=total,
         num_tiles_touched=areas.to(torch.int32))
 
+
+def bin_gaussians(rect_min: torch.Tensor, rect_max: torch.Tensor,
+                  depth: torch.Tensor, valid: torch.Tensor, grid: TileGrid, *,
+                  instance_capacity: int) -> BinningResult:
+    """Depth-sorted per-tile Gaussian lists of one camera in one flat array
+    (``bin_gaussians_batch`` at B = 1).
+
+    rect_min/rect_max: [N,2] int32 tile rectangles (max exclusive) from
+    core.projection.tile_rect; depth: [N] view-space z (> 0.2 where valid);
+    valid: [N] bool."""
+    bins = bin_gaussians_batch(rect_min[None], rect_max[None], depth[None],
+                               valid[None], grid,
+                               instance_capacity=instance_capacity)
+    return bins._replace(total=bins.total[0],
+                         num_tiles_touched=bins.num_tiles_touched[0])

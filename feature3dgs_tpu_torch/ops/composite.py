@@ -113,11 +113,19 @@ def _alpha_power(coeff, mono):
 
 def composite_plain(xy, conic, opacity, rgb, depth, feat, gid_sorted,
                     tile_starts, tile_counts, grid: TileGrid, *, chunk: int,
-                    tile_base: int = 0, alpha_matmul: bool = False,
+                    tile_base: int = 0, n_per_camera: int = 0,
+                    alpha_matmul: bool = False,
                     stats: dict | None = None) -> CompositeOutput:
     """Composite every tile of ``tile_starts``/``tile_counts`` (tile t is
     global tile ``tile_base + t``). Per-Gaussian inputs: xy [N,2],
     conic [N,3], opacity [N], rgb [N,3], depth [N], feat [N,F].
+
+    ``n_per_camera`` = N > 0 composites B cameras' stacked tile grids
+    (``ops.binning.bin_gaussians_batch``): global tile g belongs to camera
+    b = g // T, xy, conic, opacity, rgb and depth are [B*N, ...] and are
+    read at row b * N + id, and feat [N,F] at row id. Tiles are batched
+    within one camera at a time, exactly as one camera's call batches them,
+    so each camera's outputs are bit-equal to its own call's.
 
     ``stats``, when given, gets the work these inputs need: "tested"
     (list entry, pixel) pairs — the entries a pixel examines while it is
@@ -126,8 +134,8 @@ def composite_plain(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     masks mark the Gaussians some pixel tests ("tested_gaussians", whose
     position, conic and opacity must be read) and those that contribute
     somewhere ("contributing_gaussians", whose colour, depth and features
-    must be read). The chip smoke check computes the kernel's bound from
-    them."""
+    must be read; rows of xy, so per camera when batched). The chip smoke
+    check computes the kernel's bound from them."""
     dev = xy.device
     n_tiles = tile_starts.shape[0]
     p = grid.pixels_per_tile
@@ -146,25 +154,42 @@ def composite_plain(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     pix = tile_pixel_coords(grid, n_tiles, tile_base, dev)
     # alpha_matmul: each tile's origin is its first pixel
     local = (pix[:, 0], tile_monomials(grid, dev)) if alpha_matmul else None
+    row0 = ((torch.arange(n_tiles, device=dev) + tile_base)
+            // grid.num_tiles * n_per_camera)
     step = max(1, _BATCH_ELEMS // (chunk * p))
-    for t0 in range(0, n_tiles, step):
-        t1 = min(t0 + step, n_tiles)
+    for t0, t1 in _tile_batches(n_tiles, step, tile_base,
+                                grid.num_tiles if n_per_camera else 0):
         longest = int(counts[t0:t1].max())
         if longest == 0:
             continue
         out = _composite_tiles(
             xy, conic, opacity, rgb, depth, feat, gid, starts[t0:t1],
-            counts[t0:t1], pix[t0:t1], chunk, longest, stats,
+            counts[t0:t1], pix[t0:t1], row0[t0:t1], chunk, longest, stats,
             None if local is None else (local[0][t0:t1], local[1]))
         (color[t0:t1], feature[t0:t1], depth_out[t0:t1], final_t[t0:t1],
          n_contrib[t0:t1]) = out
     return CompositeOutput(color, feature, depth_out, final_t, n_contrib)
 
 
+def _tile_batches(n_tiles: int, step: int, tile_base: int = 0,
+                  per_camera: int = 0):
+    """[t0, t1) batches of at most ``step`` tiles; with ``per_camera`` tiles
+    a camera, none straddles two cameras and each camera's batches start
+    at its first tile."""
+    edges = [0, n_tiles]
+    if per_camera:
+        first = -tile_base % per_camera
+        edges[1:1] = range(first or per_camera, n_tiles, per_camera)
+    for e0, e1 in zip(edges, edges[1:]):
+        for t0 in range(e0, e1, step):
+            yield t0, min(t0 + step, e1)
+
+
 def _composite_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
-                     counts, pix, chunk: int, longest: int, stats,
+                     counts, pix, row0, chunk: int, longest: int, stats,
                      local=None):
-    """``local`` = (tile origins [tb,2], monomials [6,P]) selects the
+    """``row0`` [tb] is each tile's first row of the per-camera inputs;
+    ``local`` = (tile origins [tb,2], monomials [6,P]) selects the
     alpha_matmul evaluation of power."""
     tb, p = pix.shape[0], pix.shape[1]
     dev = xy.device
@@ -184,7 +209,8 @@ def _composite_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
         slot = torch.where(in_list, starts[:, None] + pos[None, :],
                            torch.zeros_like(starts)[:, None])
         ids = torch.where(in_list, gid[slot], torch.zeros_like(slot))
-        g_xy, g_conic = xy[ids], conic[ids]              # [tb,K,2], [tb,K,3]
+        rows = ids + row0[:, None]                       # this camera's rows
+        g_xy, g_conic = xy[rows], conic[rows]            # [tb,K,2], [tb,K,3]
         if local is not None:
             power = _alpha_power(_alpha_coeff(g_xy, g_conic, local[0])[0],
                                  local[1])
@@ -193,7 +219,7 @@ def _composite_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
             dy = g_xy[..., 1:2] - py
             ca, cb, cc = (g_conic[..., i:i + 1] for i in range(3))
             power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha_raw = torch.clamp_max(opacity[ids][..., None] * torch.exp(power),
+        alpha_raw = torch.clamp_max(opacity[rows][..., None] * torch.exp(power),
                                     ALPHA_MAX)
         ok = (power <= 0.0) & (alpha_raw >= ALPHA_MIN) & in_list[..., None]
         alpha = torch.where(ok, alpha_raw, torch.zeros_like(alpha_raw))
@@ -217,11 +243,11 @@ def _composite_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
                              ("contributing_gaussians", mask.any(-1))):
                 seen = stats.setdefault(key, torch.zeros(
                     xy.shape[0], dtype=torch.bool, device=dev))
-                seen[ids[hit]] = True
+                seen[rows[hit]] = True
 
-        acc_c += torch.einsum("tkp,tkc->tpc", w, rgb[ids])
+        acc_c += torch.einsum("tkp,tkc->tpc", w, rgb[rows])
         acc_f += torch.einsum("tkp,tkf->tpf", w, feat[ids])
-        acc_d += torch.einsum("tkp,tk->tp", w, depth[ids])
+        acc_d += torch.einsum("tkp,tk->tp", w, depth[rows])
 
         trans = trans * torch.exp(torch.sum(
             torch.where(mask, log1m, torch.zeros_like(log1m)), dim=1))

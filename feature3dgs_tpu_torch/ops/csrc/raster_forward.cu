@@ -22,6 +22,12 @@
 //     with T after < 1e-4 ends the pixel; n_contrib is the largest 1-based
 //     list position that contributed;
 //   * a block stops once none of its pixels is live (block-wide vote).
+// Batched views (n_per_camera = N > 0, ops/rasterize.py:rasterize_batch):
+// the launch walks B cameras' stacked tile grids, camera-major; tile
+// tile_base + t belongs to camera b = (tile_base + t) / (grid_x * grid_y),
+// whose xy, conic, opacity, rgb and depth are rows b * N + id of [B*N]
+// arrays, while feat [N,F] is one for all cameras and read at row id. At
+// n_per_camera = 0 every address is the unbatched one.
 // The per-splat power/alpha arithmetic is raster_common.cuh:splat_alpha,
 // shared with the backward kernel, which must re-decide bit for bit which
 // splats counted. It and the T update use __fmul_rn/__fadd_rn so the
@@ -134,7 +140,8 @@ struct Args {
   const int* gid_sorted;
   const int* tile_starts;
   const int* tile_counts;
-  int tile_base, grid_x, grid_y, tile_w, tile_h, f_dim, n_groups, n_splits;
+  int tile_base, n_per_camera, grid_x, grid_y, tile_w, tile_h, f_dim,
+      n_groups, n_splits;
   float* out_color;
   float* out_feat;
   float* out_depth;
@@ -142,8 +149,17 @@ struct Args {
   int* out_ncontrib;
 };
 
+// The first row of this block's camera in xy, conic, opacity, rgb and
+// depth (0 unbatched). Computed where it is used, from the launch's
+// constants, so that it holds no register through the walk.
+__device__ __forceinline__ size_t camera_row0(const Args& a) {
+  const int t = blockIdx.x / (a.n_groups * a.n_splits);
+  return (size_t)((a.tile_base + t) / (a.grid_x * a.grid_y)) * a.n_per_camera;
+}
+
 // Lane k of one warp stages list entry k of a chunk: its id and scalars,
-// empty past the list's end (kn).
+// empty past the list's end (kn). The scalars are the camera's row of the
+// entry; the id, which addresses feat, is staged as it is.
 template <bool MM>
 __device__ __forceinline__ void gather_entry(const Args& a, const int* list,
                                              int k, int kn, float ox,
@@ -152,22 +168,23 @@ __device__ __forceinline__ void gather_entry(const Args& a, const int* list,
   const bool ok = k < kn;
   const int g = ok ? list[k] : 0;
   s_gid[k] = ok ? g : -1;
-  const float x = ok ? a.xy[2 * g] : 0.f;
-  const float y = ok ? a.xy[2 * g + 1] : 0.f;
-  const float ca = ok ? a.conic[3 * g] : 0.f;
-  const float cb = ok ? a.conic[3 * g + 1] : 0.f;
-  const float cc = ok ? a.conic[3 * g + 2] : 0.f;
+  const size_t r = camera_row0(a) + g;
+  const float x = ok ? a.xy[2 * r] : 0.f;
+  const float y = ok ? a.xy[2 * r + 1] : 0.f;
+  const float ca = ok ? a.conic[3 * r] : 0.f;
+  const float cb = ok ? a.conic[3 * r + 1] : 0.f;
+  const float cc = ok ? a.conic[3 * r + 2] : 0.f;
   s_geom[0 * CHUNK + k] = x;
   s_geom[1 * CHUNK + k] = y;
   s_geom[2 * CHUNK + k] = ca;
   s_geom[3 * CHUNK + k] = cb;
   s_geom[4 * CHUNK + k] = cc;
   // opacity 0 never reaches ALPHA_MIN: empty entries never count
-  s_geom[5 * CHUNK + k] = ok ? a.opacity[g] : 0.f;
-  s_geom[6 * CHUNK + k] = ok ? a.rgb[3 * g] : 0.f;
-  s_geom[7 * CHUNK + k] = ok ? a.rgb[3 * g + 1] : 0.f;
-  s_geom[8 * CHUNK + k] = ok ? a.rgb[3 * g + 2] : 0.f;
-  s_geom[9 * CHUNK + k] = ok ? a.depth[g] : 0.f;
+  s_geom[5 * CHUNK + k] = ok ? a.opacity[r] : 0.f;
+  s_geom[6 * CHUNK + k] = ok ? a.rgb[3 * r] : 0.f;
+  s_geom[7 * CHUNK + k] = ok ? a.rgb[3 * r + 1] : 0.f;
+  s_geom[8 * CHUNK + k] = ok ? a.rgb[3 * r + 2] : 0.f;
+  s_geom[9 * CHUNK + k] = ok ? a.depth[r] : 0.f;
   if constexpr (MM) {
     float xl, yl, c[N_COEFF];
     f3dgs::alpha_coeff(x, y, ca, cb, cc, ox, oy, xl, yl, c);
@@ -568,16 +585,20 @@ const char* f3dgs_error_string(int code) {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched). The
 // caller guarantees that every tile's list lies in gid_sorted and holds
-// valid Gaussian ids (ops/cuda_raster.py:check_tile_lists). nt is the
-// number of 8-channel tiles a warp accumulates, halves the threads a pixel
-// and threads the block's size (ops/cuda_raster.py:forward_plan);
-// alpha_mm != 0 selects the alpha_matmul mode.
+// valid Gaussian ids (ops/cuda_raster.py:check_tile_lists), and with
+// n_per_camera = N > 0 that the per-camera arrays hold N rows for every
+// camera the tiles reach. nt is the number of 8-channel tiles a warp
+// accumulates, halves the threads a pixel and threads the block's size
+// (ops/cuda_raster.py:forward_plan); alpha_mm != 0 selects the alpha_matmul
+// mode. Outputs are addressed with 64-bit offsets; n_tiles times the blocks
+// a tile must fit in an int.
 int f3dgs_raster_forward(const float* xy, const float* conic,
                          const float* opacity, const float* rgb,
                          const float* depth, const float* feat,
                          const int* gid_sorted, const int* tile_starts,
                          const int* tile_counts,
-                         int n_tiles, int tile_base, int grid_x, int grid_y,
+                         int n_tiles, int tile_base, int n_per_camera,
+                         int grid_x, int grid_y,
                          int tile_w, int tile_h, int f_dim, int nt,
                          int halves, int threads, int alpha_mm,
                          float* out_color,
@@ -585,7 +606,7 @@ int f3dgs_raster_forward(const float* xy, const float* conic,
                          int* out_ncontrib, void* stream) {
   const int p_pix = tile_w * tile_h;
   if (p_pix <= 0 || p_pix > MAX_PIXELS || f_dim < 0 || grid_x <= 0 ||
-      grid_y <= 0 || (f_dim > 0) != (nt > 0))
+      grid_y <= 0 || n_per_camera < 0 || (f_dim > 0) != (nt > 0))
     return (int)cudaErrorInvalidValue;
   const bool mm = alpha_mm != 0;
   Kernel kernel = pick_kernel(threads, nt, halves, mm);
@@ -597,8 +618,8 @@ int f3dgs_raster_forward(const float* xy, const float* conic,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const Args a = {xy, conic, opacity, rgb, depth, feat, gid_sorted,
-                  tile_starts, tile_counts, tile_base, grid_x, grid_y, tile_w,
-                  tile_h, f_dim, n_groups(f_dim, nt, halves),
+                  tile_starts, tile_counts, tile_base, n_per_camera, grid_x,
+                  grid_y, tile_w, tile_h, f_dim, n_groups(f_dim, nt, halves),
                   (p_pix + pixels - 1) / pixels, out_color, out_feat,
                   out_depth, out_final_t, out_ncontrib};
   kernel<<<n_tiles * a.n_groups * a.n_splits, threads, smem,

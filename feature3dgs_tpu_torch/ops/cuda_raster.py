@@ -224,7 +224,7 @@ def _library(name: str):
             paths = build()
             p, i = ctypes.c_void_p, ctypes.c_int
             for lib_name, sig, n_plan in (
-                    ("raster_forward", [p] * 9 + [i] * 11 + [p] * 6, 4),
+                    ("raster_forward", [p] * 9 + [i] * 12 + [p] * 6, 4),
                     ("raster_backward", [p] * 15 + [i] * 9 + [p] * 3, 5)):
                 lib = ctypes.CDLL(str(paths[lib_name]))
                 fn = getattr(lib, f"f3dgs_{lib_name}")
@@ -289,21 +289,32 @@ def check_tile_partition(tile_starts: torch.Tensor, tile_counts: torch.Tensor,
 
 
 def _check_splats(xy, conic, opacity, rgb, depth, feat, gid_sorted,
-                  tile_starts, tile_counts, grid: TileGrid):
+                  tile_starts, tile_counts, grid: TileGrid, *,
+                  tile_base: int = 0, n_per_camera: int = 0):
     """Device, dtype, shape and contiguity of the splat inputs both kernels
-    take; returns (device, N, F, T, P)."""
+    take; returns (device, N, F, T, P). With ``n_per_camera`` = N > 0 the
+    per-camera inputs hold B * N rows and the tiles must lie in the B
+    cameras' grids."""
     dev = xy.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    n = xy.shape[0]
+    rows = xy.shape[0]
+    n = n_per_camera or rows
     f_dim = feat.shape[-1] if feat.dim() == 2 else -1
     n_tiles = tile_starts.shape[0]
+    if n_per_camera < 0 or rows % max(n, 1) or (
+            n_per_camera and tile_base + n_tiles
+            > rows // n_per_camera * grid.num_tiles):
+        raise ValueError(
+            f"{rows} rows of per-camera inputs do not cover tiles "
+            f"{tile_base}..{tile_base + n_tiles} at {n_per_camera} Gaussians "
+            f"a camera and {grid.num_tiles} tiles a camera")
     f32, i32 = torch.float32, torch.int32
-    _check("xy", xy, f32, (n, 2), dev)
-    _check("conic", conic, f32, (n, 3), dev)
-    _check("opacity", opacity, f32, (n,), dev)
-    _check("rgb", rgb, f32, (n, 3), dev)
-    _check("depth", depth, f32, (n,), dev)
+    _check("xy", xy, f32, (rows, 2), dev)
+    _check("conic", conic, f32, (rows, 3), dev)
+    _check("opacity", opacity, f32, (rows,), dev)
+    _check("rgb", rgb, f32, (rows, 3), dev)
+    _check("depth", depth, f32, (rows,), dev)
     _check("feat", feat, f32, (n, f_dim), dev)
     _check("gid_sorted", gid_sorted, i32, (gid_sorted.shape[0],), dev)
     _check("tile_starts", tile_starts, i32, (n_tiles,), dev)
@@ -351,25 +362,35 @@ def _raise_on(lib, name: str, err: int):
 
 def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
                         tile_starts, tile_counts, grid: TileGrid, *,
-                        tile_base: int = 0, alpha_matmul: bool = False
-                        ) -> CompositeOutput:
+                        tile_base: int = 0, n_per_camera: int = 0,
+                        alpha_matmul: bool = False) -> CompositeOutput:
     """Composite every tile with the forward kernel. Per-Gaussian inputs
     xy [N,2], conic [N,3], opacity [N], rgb [N,3], depth [N], feat [N,F]
     f32; gid_sorted [L], tile_starts/tile_counts [T] int32, all contiguous
     CUDA tensors (anything else raises). Outputs are in tile layout
     ([T, P, ...]); tile t is global tile ``tile_base + t``.
     ``alpha_matmul`` launches the kernel's alpha_matmul mode (power as a
-    six-term dot in tile-local coordinates)."""
+    six-term dot in tile-local coordinates).
+
+    ``n_per_camera`` = N > 0: one launch over B cameras' stacked tile grids
+    (``ops.binning.bin_gaussians_batch``); tile g belongs to camera
+    g // grid.num_tiles, xy, conic, opacity, rgb and depth are [B*N, ...]
+    and read at row b * N + id, and feat [N,F] is shared by all cameras
+    (never copied per camera). The kernel addresses its outputs with 64-bit
+    offsets and its input rows with 64-bit ones, so no batch size is
+    refused for the size of its outputs; the check below holds only what
+    stays int: the list's length, the tile index and the block count."""
     global FORWARD_LAUNCHES, FORWARD_MM_LAUNCHES
     dev, n, f_dim, n_tiles, p = _check_splats(
         xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
-        tile_counts, grid)
+        tile_counts, grid, tile_base=tile_base, n_per_camera=n_per_camera)
     plan = forward_plan(p, f_dim, alpha_matmul)
     _check_aligned("feat", feat)
     lib = _library("raster_forward")
     _check_smem(lib, "raster_forward", plan.smem_bytes, plan.threads,
                 plan.channel_tiles, plan.halves, int(alpha_matmul))
-    if max(n, gid_sorted.shape[0], n_tiles * p * max(f_dim, 3)) >= 2 ** 31:
+    if max(gid_sorted.shape[0], tile_base + n_tiles,
+           n_tiles * plan.groups * plan.splits) >= 2 ** 31:
         raise ValueError("sizes exceed the kernel's 32-bit indexing")
     check_tile_lists(gid_sorted, tile_starts, tile_counts, n)
 
@@ -385,9 +406,10 @@ def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             xy.data_ptr(), conic.data_ptr(), opacity.data_ptr(),
             rgb.data_ptr(), depth.data_ptr(), feat.data_ptr(),
             gid_sorted.data_ptr(), tile_starts.data_ptr(),
-            tile_counts.data_ptr(), n_tiles, tile_base, grid.grid_x,
-            grid.grid_y, grid.tile_w, grid.tile_h, f_dim, plan.channel_tiles,
-            plan.halves, plan.threads, int(alpha_matmul), color.data_ptr(),
+            tile_counts.data_ptr(), n_tiles, tile_base, n_per_camera,
+            grid.grid_x, grid.grid_y, grid.tile_w, grid.tile_h, f_dim,
+            plan.channel_tiles, plan.halves, plan.threads, int(alpha_matmul),
+            color.data_ptr(),
             feature.data_ptr(), depth_out.data_ptr(), final_t.data_ptr(),
             n_contrib.data_ptr(), stream)
     _raise_on(lib, "raster_forward", err)

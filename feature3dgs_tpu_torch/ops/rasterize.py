@@ -8,7 +8,9 @@ compositing is one ``torch.autograd.Function`` whose forward and backward
 are the CUDA kernels (or, for CPU tensors, their plain versions), and whose
 per-entry gradient rows are summed per Gaussian by ``ops.segment``.
 ``ndc_offset`` (a zero [N,2] tensor that requires grad) yields the NDC-space
-positional gradients densification accumulates.
+positional gradients densification accumulates. ``rasterize_batch`` renders
+B same-resolution views forward-only through one binning sort and one
+forward-kernel launch over their stacked tile grids.
 """
 from __future__ import annotations
 
@@ -116,6 +118,18 @@ def tiles_to_image(tiles: torch.Tensor, grid: TileGrid) -> torch.Tensor:
     return img[: grid.height, : grid.width]
 
 
+def tiles_to_images(tiles: torch.Tensor, grid: TileGrid,
+                    n_cams: int) -> torch.Tensor:
+    """[B * num_tiles, pixels_per_tile, ...] of B stacked same-size grids,
+    camera-major -> [B, H, W, ...]: the stack is one image B grids tall."""
+    tall = TileGrid(width=grid.grid_x * grid.tile_w,
+                    height=n_cams * grid.grid_y * grid.tile_h,
+                    tile_w=grid.tile_w, tile_h=grid.tile_h)
+    img = tiles_to_image(tiles, tall)
+    img = img.reshape((n_cams, grid.grid_y * grid.tile_h) + img.shape[1:])
+    return img[:, : grid.height, : grid.width]
+
+
 def mark_visible(means3d: torch.Tensor, cam: proj_lib.CameraView) -> torch.Tensor:
     """[N] bool near-plane mask (view z > 0.2), as the preprocess applies."""
     _, _, in_frustum = proj_lib.project_points(means3d, cam)
@@ -149,7 +163,9 @@ def _prep_view(means3d, opacities, cam, grid, *, scales, rotations,
 
 
 class CompositeInputs(NamedTuple):
-    """One view, preprocessed and binned: what the compositor takes."""
+    """One view (or B, from ``composite_inputs_batch``: a leading [B] on
+    ``pre`` and ``valid``), preprocessed and binned: what the compositor
+    takes."""
 
     pre: proj_lib.Preprocessed
     valid: torch.Tensor            # [N] bool: binned (in view, alive)
@@ -301,3 +317,134 @@ def rasterize(
                                          device=counts.device)),
         feature_tiles=out.feature,
     )
+
+
+def _views(cams) -> list:
+    """A stacked CameraView (tensor fields with a leading [B]) or a list of
+    CameraViews -> a list of B same-resolution CameraViews."""
+    if isinstance(cams, proj_lib.CameraView):
+        cams = [proj_lib.CameraView(
+            view=cams.view[b], proj=cams.proj[b], campos=cams.campos[b],
+            tan_fovx=cams.tan_fovx[b], tan_fovy=cams.tan_fovy[b],
+            width=cams.width, height=cams.height)
+            for b in range(cams.view.shape[0])]
+    cams = list(cams)
+    if not cams:
+        raise ValueError("rasterize_batch needs at least one view")
+    if any((c.width, c.height) != (cams[0].width, cams[0].height)
+           for c in cams):
+        raise ValueError("rasterize_batch renders same-resolution views only")
+    return cams
+
+
+def composite_inputs_batch(means3d, opacities, semantic_features, cams, *,
+                           scales=None, rotations=None, shs=None, sh_degree=0,
+                           colors_precomp=None, scale_modifier=1.0,
+                           active_mask=None,
+                           config: RasterConfig = RasterConfig()
+                           ) -> CompositeInputs:
+    """Preprocess B same-resolution views (a stacked CameraView or a list)
+    one by one and bin them in one sort. ``pre`` and ``valid`` are stacked
+    [B, N, ...]; ``args`` holds the splat arrays flattened to [B*N, ...] and
+    the feature table [N,F] once, for ``raster_forward_cuda`` and
+    ``composite_plain`` with ``n_per_camera`` = N."""
+    views = _views(cams)
+    n_cams, n = len(views), means3d.shape[0]
+    grid = config.grid(views[0].width, views[0].height)
+    preps = [_prep_view(
+        means3d, opacities, cam, grid, scales=scales, rotations=rotations,
+        cov3d_precomp=None, shs=shs, sh_degree=sh_degree,
+        colors_precomp=colors_precomp, scale_modifier=scale_modifier,
+        ndc_offset=None, active_mask=active_mask) for cam in views]
+    pre = proj_lib.Preprocessed(*(torch.stack(x) for x in zip(
+        *(p[0] for p in preps))))
+    rect_min, rect_max, valid = (torch.stack([p[i] for p in preps])
+                                 for i in (2, 3, 4))
+    bins = binning_lib.bin_gaussians_batch(
+        rect_min, rect_max, pre.depth.detach(), valid, grid,
+        instance_capacity=config.instance_capacity_or_default)
+    flat = lambda x: x.reshape((n_cams * n,) + x.shape[2:]).contiguous()
+    args = (flat(pre.xy), flat(pre.conic), flat(pre.opacity), flat(pre.rgb),
+            flat(pre.depth), semantic_features.contiguous(), bins.gid_sorted,
+            bins.tile_starts, bins.tile_counts, grid)
+    return CompositeInputs(pre, valid, bins, grid, args)
+
+
+def rasterize_batch(
+    means3d: torch.Tensor,
+    opacities: torch.Tensor,
+    semantic_features: torch.Tensor,
+    cams,
+    *,
+    scales: torch.Tensor | None = None,
+    rotations: torch.Tensor | None = None,
+    shs: torch.Tensor | None = None,
+    sh_degree: int = 0,
+    colors_precomp: torch.Tensor | None = None,
+    bg: torch.Tensor | None = None,
+    scale_modifier=1.0,
+    active_mask: torch.Tensor | None = None,
+    config: RasterConfig = RasterConfig(),
+) -> RasterOutput:
+    """Forward-only rendering of B same-resolution views in one pass (port
+    of ``feature3dgs_tpu/ops/rasterize.py:rasterize_batch``).
+
+    ``cams`` is a stacked CameraView (tensor fields [B, ...]) or a list of
+    CameraViews. ``composite_inputs_batch`` preprocesses each view and bins
+    all B in one sort into a camera-major list over B * T tiles; one
+    forward-kernel launch (``n_per_camera`` = N) composites them for CUDA
+    tensors, the plain version for CPU tensors, chosen by ``_use_kernels``
+    as ``rasterize`` chooses. The splat arrays are stacked to [B*N, ...];
+    the feature table [N,F] is passed once and never copied per camera. The
+    kernel addresses its outputs with 64-bit offsets, so a batch is never
+    split into several launches.
+
+    Image fields come back [B, ...]; radii and visibility [B,N];
+    ``total_instances`` and ``max_tile_count`` are per camera ([B]), and
+    ``instance_capacity`` holds for each camera alone. Every field is
+    bit-equal to B ``rasterize`` calls with either compositor. No gradient:
+    it runs under ``torch.no_grad()`` and raises if an input requires one
+    while grad mode is on."""
+    inputs = (means3d, opacities, semantic_features, scales, rotations, shs,
+              colors_precomp)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in inputs):
+        raise ValueError("rasterize_batch is forward-only: call it under "
+                         "torch.no_grad() or with inputs that need no grad")
+    with torch.no_grad():
+        ci = composite_inputs_batch(
+            means3d, opacities, semantic_features, cams, scales=scales,
+            rotations=rotations, shs=shs, sh_degree=sh_degree,
+            colors_precomp=colors_precomp, scale_modifier=scale_modifier,
+            active_mask=active_mask, config=config)
+        n_cams, n, grid = ci.valid.shape[0], means3d.shape[0], ci.grid
+        if _use_kernels(config, means3d):
+            out = raster_forward_cuda(*ci.args, n_per_camera=n,
+                                      alpha_matmul=config.alpha_matmul)
+        else:
+            out = composite_plain(*ci.args, chunk=config.chunk,
+                                  n_per_camera=n,
+                                  alpha_matmul=config.alpha_matmul)
+        if bg is None:
+            bg = torch.zeros((3,), dtype=out.color.dtype,
+                             device=out.color.device)
+        color = out.color + out.final_T[..., None] * bg
+        img = lambda x: tiles_to_images(x, grid, n_cams)
+        radii = torch.where(ci.valid, ci.pre.radius,
+                            torch.zeros_like(ci.pre.radius))
+        counts = ci.bins.tile_counts.reshape(n_cams, grid.num_tiles)
+        return RasterOutput(
+            color=img(color),
+            feature=img(out.feature),
+            depth=img(out.depth),
+            alpha=1.0 - img(out.final_T),
+            radii=radii,
+            visibility=radii > 0,
+            n_contrib=img(out.n_contrib),
+            total_instances=ci.bins.total,
+            max_tile_count=(counts.amax(1) if grid.num_tiles else
+                            torch.zeros(n_cams, dtype=torch.int32,
+                                        device=counts.device)),
+            feature_tiles=out.feature.reshape(
+                (n_cams, grid.num_tiles) + out.feature.shape[1:]),
+        )

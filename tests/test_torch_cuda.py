@@ -119,6 +119,12 @@ def test_kernel_wrapper_rejects_bad_inputs(dev):
     bad[8][-1] = args[6].numel() + 1      # the last tile's list leaves gid_sorted
     with pytest.raises(ValueError, match="tile lists out of range"):
         cuda_raster.raster_forward_cuda(*bad)
+    # batched: the rows must be whole cameras, and the tiles in their grids
+    n = args[0].shape[0]
+    for kw in (dict(n_per_camera=n - 1),
+               dict(n_per_camera=n, tile_base=ci.grid.num_tiles)):
+        with pytest.raises(ValueError, match="do not cover"):
+            cuda_raster.raster_forward_cuda(*args, **kw)
 
 
 # gradient groups of the backward's rows: (name, first column, end column)
@@ -527,3 +533,110 @@ def test_densify_round_on_the_card_equals_the_cpu(dev, use_screen_size_prune):
             assert torch.equal(a, b), k
         assert torch.equal(getattr(on_card[2].mu, k).cpu(),
                            getattr(on_cpu[2].mu, k)), k
+
+
+def _batch_views(dev, width=64, height=48):
+    """Three same-size cameras on the z axis (tests/test_rasterize.py's)."""
+    from feature3dgs_tpu_torch.convert import camera_from_numpy
+    from feature3dgs_tpu_torch.core import transforms
+    views = []
+    for cam_z, fovx in ((-4.0, 1.0), (-3.0, 1.1), (-5.5, 0.9)):
+        view = transforms.world_to_view(np.eye(3), np.array([0.0, 0.0, -cam_z]))
+        proj = transforms.projection_matrix(0.01, 100.0, fovx, 0.8) @ view
+        views.append(camera_from_numpy(
+            view, proj, transforms.camera_center_from_view(view).astype(
+                np.float32), math.tan(fovx / 2), math.tan(0.4), width, height,
+            dev))
+    return views
+
+
+@pytest.mark.parametrize("alpha_matmul", [False, True])
+@pytest.mark.parametrize("f_dim,tile_w", [(8, 16), (128, 32)])
+def test_batched_kernel_equals_per_view_launches(dev, f_dim, tile_w,
+                                                 alpha_matmul):
+    """One launch over three cameras' stacked grids (n_per_camera) gives
+    each camera's per-view launch bit for bit, and matches the batched plain
+    version at the mode's bars; the feature table is passed once."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.composite import composite_plain
+    from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
+                                                     composite_inputs,
+                                                     composite_inputs_batch)
+    rng = np.random.RandomState(3)
+    n = 300
+    q = rng.randn(n, 4)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    g = {"means3d": rng.uniform(-1.5, 1.5, (n, 3)),
+         "scales": np.exp(rng.uniform(-3.5, -1.5, (n, 3))), "rotations": q,
+         "opacities": np.minimum(rng.uniform(0.2, 0.95, n) * 3.0, 0.999),
+         "shs": rng.randn(n, 9, 3) * 0.3, "feat": rng.randn(n, f_dim)}
+    g = {k: torch.tensor(v.astype(np.float32), device=dev) for k, v in g.items()}
+    kw = dict(scales=g["scales"], rotations=g["rotations"], shs=g["shs"],
+              sh_degree=2, config=RasterConfig(tile_w=tile_w, tile_h=16))
+    views = _batch_views(dev)
+    ci = composite_inputs_batch(g["means3d"], g["opacities"], g["feat"],
+                                views, **kw)
+    assert ci.args[5].data_ptr() == g["feat"].data_ptr()   # not copied
+    before = (cuda_raster.FORWARD_LAUNCHES, cuda_raster.FORWARD_MM_LAUNCHES)
+    got = cuda_raster.raster_forward_cuda(*ci.args, n_per_camera=n,
+                                          alpha_matmul=alpha_matmul)
+    after = (cuda_raster.FORWARD_LAUNCHES, cuda_raster.FORWARD_MM_LAUNCHES)
+    assert after[int(alpha_matmul)] == before[int(alpha_matmul)] + 1
+    t = ci.grid.num_tiles
+    for b, view in enumerate(views):
+        one = composite_inputs(g["means3d"], g["opacities"], g["feat"], view,
+                               **kw)
+        ref = cuda_raster.raster_forward_cuda(*one.args,
+                                              alpha_matmul=alpha_matmul)
+        for name in ref._fields:
+            assert torch.equal(getattr(got, name)[b * t:(b + 1) * t],
+                               getattr(ref, name)), (b, name)
+    plain = composite_plain(*ci.args, chunk=32, n_per_camera=n,
+                            alpha_matmul=alpha_matmul)
+    torch.cuda.synchronize()
+    if alpha_matmul:
+        for k, tol in (("color", 1e-4), ("feature", 1e-4), ("final_T", 1e-4),
+                       ("depth", 5e-4)):
+            assert float((getattr(got, k) - getattr(plain, k)).abs().max()) \
+                <= tol, k
+        diff = (got.n_contrib - plain.n_contrib).abs()
+        assert float((diff > 0).float().mean()) < 0.01 and int(diff.max()) <= 1
+    else:
+        _check(got, plain)
+
+
+def test_render_batch_on_the_card_equals_render(dev):
+    """renderer.render_batch launches the forward kernel once for the batch
+    and equals renderer.render view by view, bit for bit."""
+    from feature3dgs_tpu_torch import convert
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
+    from feature3dgs_tpu_torch.render import renderer
+    rng = np.random.RandomState(5)
+    n = 240
+    fields = {
+        "xyz": rng.uniform(-1.5, 1.5, (n, 3)),
+        "features_dc": rng.randn(n, 1, 3) * 0.5,
+        "features_rest": rng.randn(n, 15, 3) * 0.2,
+        "scaling": rng.uniform(-3.5, -1.5, (n, 3)),
+        "rotation": rng.randn(n, 4), "opacity": rng.uniform(-1, 3, (n, 1)),
+        "semantic_feature": rng.randn(n, 1, 16)}
+    fields = {k: v.astype(np.float32) for k, v in fields.items()}
+    alive = np.ones(n, bool)
+    alive[::7] = False
+    params, state = convert.gaussians_from_numpy(fields, alive, 3, dev)
+    views = _batch_views(dev)
+    cfg = RasterConfig(tile_w=16, tile_h=16, instance_capacity=1 << 12)
+    with torch.inference_mode():
+        before = cuda_raster.FORWARD_LAUNCHES
+        batch = renderer.render_batch(params, state, views, config=cfg)
+        assert cuda_raster.FORWARD_LAUNCHES == before + 1
+        for b, view in enumerate(views):
+            one = renderer.render(params, state, view, config=cfg)
+            for name in one._fields:
+                assert torch.equal(getattr(batch, name)[b],
+                                   getattr(one, name)), (b, name)
+    with pytest.raises(ValueError, match="forward-only"):
+        renderer.render_batch(
+            params, state, views, config=cfg,
+            override_opacity=torch.ones(n, device=dev, requires_grad=True))

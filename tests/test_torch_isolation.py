@@ -164,6 +164,25 @@ def _call_entry_point(name, tmp_path, **kw):
         # the device is resolved before the scene is read
         argv = ["-s", str(tmp_path / "no_scene"), "-m", str(tmp_path / "out")]
         return train.main(argv + (["--device", kw["device"]] if kw else []))
+    if name == "load_lpips_weights":
+        from feature3dgs_tpu_torch.metrics.lpips import load_lpips_weights
+        return load_lpips_weights(str(tmp_path / "missing.npz"), **kw)
+    if name.startswith("cli."):
+        # each CLI resolves its device before it reads anything
+        import importlib
+        module = importlib.import_module(
+            "feature3dgs_tpu_torch." + name.rsplit(".", 1)[0])
+        missing = str(tmp_path / "missing")
+        argv = {"cli.render.main": ["-m", missing],
+                "cli.segmentation.main": [
+                    "--feature_dir", missing, "--output", missing,
+                    "--text_features", missing + ".npy"],
+                "cli.segmentation_metric.main": [
+                    "--student_dir", missing, "--teacher_dir", missing,
+                    "--label_src", "a,b", "--text_features", missing + ".npy"],
+                "cli.metrics.main": ["-m", missing],
+                "cli.full_eval.main": ["--output_path", missing]}[name]
+        return module.main(argv + (["--device", kw["device"]] if kw else []))
     assert name == "camera_from_numpy"
     return convert.camera_from_numpy(eye, eye, eye[0, :3], 0.5, 0.4, 8, 6,
                                      **kw)
@@ -174,11 +193,16 @@ ENTRY_POINTS = ["load_gaussians_ply", "load_decoder_checkpoint",
                 "gaussians_from_numpy", "decoder_from_numpy",
                 "camera_from_numpy", "train_state_from_numpy", "init_adam",
                 "TrainState.create", "load_checkpoint", "Trainer",
-                "cli.train.main"]
+                "load_lpips_weights", "cli.train.main", "cli.render.main",
+                "cli.segmentation.main", "cli.segmentation_metric.main",
+                "cli.metrics.main", "cli.full_eval.main"]
 # the device is resolved first, then these fail on their missing input
 NEEDS_A_FILE = {"load_decoder_checkpoint": FileNotFoundError,
                 "load_checkpoint": FileNotFoundError,
-                "cli.train.main": ValueError}
+                "cli.train.main": ValueError,
+                "cli.render.main": FileNotFoundError,
+                "cli.segmentation.main": FileNotFoundError,
+                "cli.segmentation_metric.main": FileNotFoundError}
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

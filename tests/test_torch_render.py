@@ -274,13 +274,4 @@ def test_jet_colormap_and_pca_match_jax():
     np.testing.assert_allclose(pmodes.feature_pca_vis(fmap),
                                jmodes.feature_pca_vis(fmap), atol=1e-6)
     with pytest.raises(ValueError, match="not available"):
-        pmodes.colormap(depth, "turbo")
-
-
-@pytest.mark.parametrize("flag", [["--novel_view"], ["--video"],
-                                  ["--render_batch", "2"],
-                                  ["--edit_config", "x.yaml"]])
-def test_render_cli_refuses_unported_flags(flag, tmp_path):
-    from feature3dgs_tpu_torch.cli import render as port_cli
-    with pytest.raises(SystemExit, match="not ported"):
-        port_cli.main(["-m", str(tmp_path), "--device", "cpu"] + flag)
+        pmodes.colormap(depth, "viridis")

@@ -46,6 +46,15 @@ Phases, one line each; any failure raises and exits non-zero:
                bench.py's loss, at 1e-5; two kernel + segment-sum runs
                bit-equal; kernel, plain and segment-sum times, the bound
                and the design's bytes (passes over the cotangent rows).
+  kernel_bwd_slice  the backward kernel's tile_base and n_per_camera at the
+               training scene: over 2 and 4 slices of tile rows of view 0
+               (each its own sub-range of gid_sorted, rebased starts) the
+               rows equal the full launch's bit for bit; over orbit views
+               0-3 in one launch each camera's rows equal its own launch's
+               bit for bit; full and batched launch within 5e-6 of the plain
+               version (max-normalised); the batched launch's time in both
+               modes (20 launches) beside the per-view bound summed over the
+               4 views.
   kernel_loop  both kernels alone, in both modes, at the first view of the
                train_loop scene (scales from 3-NN distances, opacity 0.1,
                SH degree 0: ~1.79 M instances, 30-56 chunks a tile, where a
@@ -81,7 +90,7 @@ Phases, one line each; any failure raises and exits non-zero:
                scene above as a point cloud, the 8 orbit cameras, a U(0,1)
                image and an fp16 608x400x128 teacher each) through Trainer
                (the package's own KNN, auto instance capacity, capacity
-               headroom 1.0) for 60 steps with the schedule compressed
+               headroom 1.0) for 50 steps with the schedule compressed
                (densify every 10 from 5, opacity reset every 20), then
                across iteration 1000 (the SH-degree bump). Every loss
                finite; clones, splits and prunes non-zero; a Gaussian-
@@ -93,6 +102,13 @@ Phases, one line each; any failure raises and exits non-zero:
                Step times (plain steps, steps that carry maintenance), the
                round's own ms, host syncs per step, peak memory. Then 10
                steps with alpha_matmul=True from a fresh Trainer.
+  train_batch  4 cameras a step through parallel.DistributedTrainer on a
+               1 x 1 mesh (bench.py's Gaussians, train_loop's orbit cameras
+               0-3 with their images and teachers): the first step's loss
+               equal to the mean of the 4 cameras' own train_step losses
+               from the same state (2e-5 relative), one forward and one
+               backward launch a step, B = 4 step ms against 4 single-camera
+               Trainer steps, blocking host calls and peak memory of each.
   train_cli    python -m feature3dgs_tpu_torch.cli.train as a subprocess on
                a small Blender-style scene (4 train and 2 test frames of
                128x128, 16-d teacher maps, 2000 points), 40 iterations with
@@ -106,12 +122,13 @@ Phases, one line each; any failure raises and exits non-zero:
                segmentation-metric and metrics CLIs on their output; every
                exit code, the artifact trees, finite scores.
 Then the card's name and power limit, a {"kernels": [...]} line (the two
-forward entries also with batch8_ms and batch8_bound_ms) and, last,
+forward entries also with batch8_ms and batch8_bound_ms, the two backward
+entries with batch4_ms and batch4_bound_ms) and, last,
 {"ok": true, "device": {...}}. With --profile DIR, torch.profiler tables of
 two served views, of the 8 views sequential and in a batch of 8 (with the
 device-busy ms and idle share of each) and of two training steps are
-written to DIR; --only a,b runs just those phases (and prints no result
-lines).
+written to DIR, and of one B = 4 train_batch step and 4 single steps;
+--only a,b runs just those phases (and prints no result lines).
 """
 from __future__ import annotations
 
@@ -143,6 +160,7 @@ OPS_BWD_WALKED, OPS_BWD_CONTRIB = 15, 50
 
 N_GAUSS, F_DIM, F_OUT, WIDTH, HEIGHT = 100_000, 128, 512, 1216, 800
 N_VIEWS = 8
+BATCH = 4       # cameras a step of train_batch, views of kernel_bwd_slice
 # configs/edit_*.yaml as mappings, so that this check needs no PyYAML (the
 # render CLI reads them as JSON); tests/test_torch_tasks.py holds them equal
 _OBJECTS = ["car", "tree", "building", "sidewalk", "road"]
@@ -850,6 +868,261 @@ def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
             **bound_fields(n_bytes, ops)}
 
 
+def orbit_cameras(dev, n):
+    return [camera(orbit_view(i), WIDTH, HEIGHT, math.tan(0.6), math.tan(0.45),
+                   dev) for i in range(n)]
+
+
+def phase_kernel_bwd_slice(dev, params, state, gt_image, gt_feature):
+    """The backward kernel's tile slices and batched cameras at the training
+    scene: over 2 and 4 slices of tile rows of view 0 (each launched with
+    its own sub-range of gid_sorted, rebased starts and ``tile_base``) the
+    rows equal the full launch's bit for bit, NaN-poisoned rows all
+    written; over orbit views 0-3 in one launch (``n_per_camera``) each
+    camera's rows equal its own launch's bit for bit. The full and the
+    batched launch within 5e-6 of the plain version (max-normalised). The
+    batched launch timed in both modes (20 launches) beside its bound, the
+    per-view bound summed over the 4 views (the exact mode's, for both)."""
+    import torch
+    from feature3dgs_tpu_torch.model import gaussians as G
+    from feature3dgs_tpu_torch.ops.binning import tile_slices
+    from feature3dgs_tpu_torch.ops.composite import (CompositeOutput,
+                                                     composite_plain_backward)
+    from feature3dgs_tpu_torch.ops.cuda_raster import (raster_backward_cuda,
+                                                       raster_forward_cuda)
+    from feature3dgs_tpu_torch.ops.rasterize import composite_inputs_batch
+    from feature3dgs_tpu_torch.ops.segment import SegmentPlan, camera_rows
+    ci = bench_inputs(dev, params, state)
+    grid = ci.grid
+    fwd = raster_forward_cuda(*ci.args)
+    state_rows = (*bench_loss_cotangents(ci, fwd, gt_image, gt_feature),
+                  fwd.final_T, fwd.n_contrib)
+    full = raster_backward_cuda(*ci.args, *state_rows, check_lists=False)
+    ref = composite_plain_backward(*ci.args, *state_rows, chunk=128)
+    torch.cuda.synchronize()
+    err_full, _ = compare_rows("kernel_bwd_slice full", full, ref,
+                               SegmentPlan(ci.bins.gid_sorted, N_GAUSS), 5e-6)
+    del ref
+    slices = {}
+    for n_tile in (2, 4):
+        rows_loc = -(-grid.grid_y // n_tile)
+        ranges = [(min(r * rows_loc, grid.grid_y) * grid.grid_x,
+                   min((r + 1) * rows_loc, grid.grid_y) * grid.grid_x)
+                  for r in range(n_tile)]
+        offset = 0
+        for (t0, t1), lists in zip(ranges, tile_slices(*ci.args[6:9],
+                                                       ranges)):
+            k = lists[0].shape[0]
+            rows = raster_backward_cuda(
+                *ci.args[:6], *lists, grid, *(x[t0:t1] for x in state_rows),
+                tile_base=t0, out=poisoned_rows(k, F_DIM, dev))
+            assert_all_written(f"kernel_bwd_slice {n_tile} slices", rows)
+            if not (torch.equal(rows.geom, full.geom[offset:offset + k])
+                    and torch.equal(rows.feature,
+                                    full.feature[offset:offset + k])):
+                raise AssertionError(f"kernel_bwd_slice: slice {t0}..{t1} "
+                                     f"of {n_tile} differs from the full "
+                                     "launch")
+            offset += k
+        slices[n_tile] = len(ranges)
+    del full
+
+    cams = orbit_cameras(dev, BATCH)
+    n = params.xyz.shape[0]
+    cb = composite_inputs_batch(
+        params.xyz, torch.where(state.alive, G.get_opacity(params),
+                                torch.zeros((), device=dev)),
+        G.get_semantic(params), cams, scales=G.get_scaling(params),
+        rotations=G.get_rotation(params), shs=G.get_features(params),
+        sh_degree=state.active_sh_degree, active_mask=state.alive)
+    t_n = grid.num_tiles
+    batch_state = {}
+    for mm in (False, True):
+        bfwd = raster_forward_cuda(*cb.args, n_per_camera=n, alpha_matmul=mm)
+        cts = [bench_loss_cotangents(ci, CompositeOutput(
+            *(x[b * t_n:(b + 1) * t_n] for x in bfwd)), gt_image, gt_feature)
+            for b in range(BATCH)]
+        batch_state[mm] = (*(torch.cat(c) for c in zip(*cts)), bfwd.final_T,
+                           bfwd.n_contrib)
+    bstate = batch_state[False]
+    brows = raster_backward_cuda(*cb.args, *bstate, n_per_camera=n,
+                                 check_lists=False)
+    offset = 0
+    for b, cam in enumerate(cams):
+        one = bench_inputs(dev, params, state, cam=cam)
+        rows = raster_backward_cuda(
+            *one.args, *(x[b * t_n:(b + 1) * t_n] for x in bstate),
+            check_lists=False)
+        k = one.bins.gid_sorted.shape[0]
+        if not (torch.equal(brows.geom[offset:offset + k], rows.geom)
+                and torch.equal(brows.feature[offset:offset + k],
+                                rows.feature)):
+            raise AssertionError(f"kernel_bwd_slice: camera {b} of the "
+                                 "batched launch differs from its own launch")
+        offset += k
+        del one, rows
+    stats: dict = {}
+    ref = composite_plain_backward(*cb.args, *bstate, chunk=128,
+                                   n_per_camera=n, stats=stats)
+    torch.cuda.synchronize()
+    rows_of = camera_rows(cb.bins.gid_sorted, cb.bins.tile_counts, n, t_n)
+    err_batch, _ = compare_rows("kernel_bwd_slice batched", brows, ref,
+                                SegmentPlan(rows_of, BATCH * n), 5e-6)
+    del ref, brows
+    ms = {mm: cuda_ms(lambda: raster_backward_cuda(
+        *cb.args, *batch_state[mm], n_per_camera=n, alpha_matmul=mm,
+        check_lists=False), 20) for mm in (False, True)}
+    n_inst = cb.bins.gid_sorted.shape[0]
+    b_bytes, b_ops, _, _ = backward_bound(stats, BATCH * t_n,
+                                          grid.pixels_per_tile, n_inst)
+    bound = bound_fields(b_bytes, b_ops)
+    say("kernel_bwd_slice", instances=int(ci.bins.total),
+        slices=json.dumps(slices).replace(" ", ""), slice_rows_bit_equal=True,
+        full_max_norm_err=err_full, batch=BATCH,
+        instances_batch=int(cb.bins.total.sum()), batch_rows_bit_equal=True,
+        batch_max_norm_err=err_batch,
+        batch4_kernel_ms=f"{ms[False]:.4f}",
+        batch4_kernel_mm_ms=f"{ms[True]:.4f}",
+        batch4_bound_bytes=b_bytes, batch4_bound_ops=b_ops,
+        batch4_bound_ms=f"{bound['bound_ms']:.4f}",
+        batch4_bound_by=bound["bound_by"])
+    return {mm: {"batch4_ms": ms[mm], "batch4_bound_ms": bound["bound_ms"]}
+            for mm in (False, True)}
+
+
+def phase_train_batch(dev, scene, at_batch4, profile_dir):
+    """B = 4 cameras a step through DistributedTrainer on a 1 x 1 mesh:
+    bench.py's Gaussians (the training scene) with the train_loop scene's
+    orbit cameras 0-3 and their U(0,1) images and fp16 608x400x128
+    teachers. The first step's loss against the mean of the four cameras'
+    own train_step losses from the same state (2e-5 relative); one forward
+    and one backward launch a step; B = 4 step times (host clock around the
+    step and a synchronize, 2 warm-up and 6 timed) against 4 single-camera
+    Trainer steps on the same cameras (2 warm-up rounds, 3 timed), the host
+    calls each blocks on, peak memory of each. With a profile directory,
+    the device-busy ms of one B = 4 step and of 4 single steps, and the
+    idle share of each against its median time."""
+    import copy
+    import warnings
+
+    import torch
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
+    from feature3dgs_tpu_torch.parallel import DistributedTrainer, make_mesh
+    from feature3dgs_tpu_torch.train.trainer import (OptimizationConfig,
+                                                     Trainer, TrainState,
+                                                     train_step)
+    rcfg = RasterConfig(instance_capacity=1 << 20)
+    kw = dict(ocfg=OptimizationConfig(), rcfg=rcfg, max_sh_degree=3,
+              feature_dim=F_DIM, capacity_headroom=1.0, seed=0, device=dev)
+    cams = scene.train_cameras[:BATCH]
+
+    def with_bench_gaussians(trainer):
+        params, gstate, _, _ = bench_scene(dev)
+        gstate.spatial_lr_scale = trainer.extent
+        trainer.ts = TrainState.create(params, gstate, device=dev)
+        return trainer
+
+    def launches():
+        return (cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)
+
+    def timed(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = launches()
+        m = step()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3,
+                tuple(a - b for a, b in zip(launches(), before)), m)
+
+    def blocking_calls(step):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchronizing CUDA operation" in str(w.message)
+                   for w in caught)
+
+    for name in ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES",
+                 "FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES"):
+        setattr(cuda_raster, name, 0)
+    dt = with_bench_gaussians(DistributedTrainer(
+        scene, mesh=make_mesh((1, 1)), cameras_per_step=BATCH, **kw))
+    start = copy.deepcopy(dt.ts)
+    _, first_launches, m = timed(lambda: dt.step(cameras=cams))
+    batch_loss = m["loss"]
+    torch.cuda.reset_peak_memory_stats()
+    runs = [timed(lambda: dt.step(cameras=cams)) for _ in range(8)]
+    batch_peak = torch.cuda.max_memory_allocated()
+    batch_syncs = blocking_calls(lambda: dt.step(cameras=cams, sync=False))
+    per_step = {first_launches} | {r[1] for r in runs}
+    if per_step != {(1, 1)} or not all(r[2]["finite"] for r in runs):
+        raise AssertionError(f"train_batch: launches per step {per_step}")
+    batch_ms = [r[0] for r in runs[2:]]
+    busy = {}
+    if profile_dir:
+        busy["batch"] = write_profile(profile_dir, "train_batch_profile.txt",
+                                      lambda: dt.step(cameras=cams))
+    del dt
+
+    own = []
+    for c in cams:
+        ts = copy.deepcopy(start)
+        gt_image = torch.from_numpy(np.asarray(c.image, np.float32)).to(dev)
+        gt_feature = torch.from_numpy(np.asarray(c.semantic_feature)).to(dev)
+        own.append(float(train_step(
+            ts, c.to_view(dev), gt_image, gt_feature,
+            torch.zeros(3, device=dev), 1, ocfg=kw["ocfg"], rcfg=rcfg,
+            speedup=False)["loss"]))
+        del ts
+    del start
+    mean = sum(own) / len(own)
+    rel = abs(batch_loss - mean) / abs(mean)
+    if not rel <= 2e-5:
+        raise AssertionError(f"train_batch: batch loss {batch_loss} against "
+                             f"the mean {mean} of {own} (rel {rel})")
+
+    st = with_bench_gaussians(Trainer(scene, **kw))
+    torch.cuda.reset_peak_memory_stats()
+    rounds = []
+    for _ in range(5):
+        rounds.append(sum(timed(lambda: st.step(camera=c))[0] for c in cams))
+    single_peak = torch.cuda.max_memory_allocated()
+    single_syncs = blocking_calls(lambda: st.step(camera=cams[0], sync=False))
+    if profile_dir:
+        busy["single"] = write_profile(
+            profile_dir, "train_batch_single_profile.txt",
+            lambda: [st.step(camera=c) for c in cams])
+        say("train_batch_profile",
+            device_busy_ms=json.dumps({k: round(v, 3) for k, v in
+                                       busy.items()}).replace(" ", ""),
+            idle_share_batch=f"{1 - busy['batch'] / statistics.median(batch_ms):.3f}",
+            idle_share_single=f"{1 - busy['single'] / statistics.median(rounds[2:]):.3f}")
+    del st
+    counts = launches()
+    stat = lambda xs: (f"{statistics.median(xs):.3f}/{min(xs):.3f}/"
+                       f"{max(xs):.3f}")
+    say("train_batch", batch=BATCH, mesh="1x1", loss=f"{batch_loss:.6f}",
+        own_losses_mean=f"{mean:.6f}", loss_rel_err=rel,
+        launches_per_step="1,1",
+        batch_step_ms_median_min_max=stat(batch_ms),
+        four_single_steps_ms_median_min_max=stat(rounds[2:]),
+        ms_per_camera_batch=f"{statistics.median(batch_ms) / BATCH:.3f}",
+        ms_per_camera_single=f"{statistics.median(rounds[2:]) / BATCH:.3f}",
+        host_syncs_batch_step=batch_syncs, host_syncs_single_step=single_syncs,
+        peak_mem_bytes_batch=batch_peak, peak_mem_bytes_single=single_peak,
+        batch4_bwd_kernel_ms=(f"{at_batch4[False]['batch4_ms']:.4f}"
+                              if at_batch4 else "not run"),
+        batch4_bwd_bound_ms=(f"{at_batch4[False]['batch4_bound_ms']:.4f}"
+                             if at_batch4 else "not run"),
+        forward_launches=counts[0], backward_launches=counts[1])
+    return counts
+
+
 def phase_kernel_loop(dev, scene):
     """Both kernels alone at the first view of the train_loop scene, exact
     and alpha_matmul modes; returns {(kernel, mode): loop-scene fields of
@@ -1212,7 +1485,7 @@ def phase_kernel_alpha_full(dev, params, state, gt_image, gt_feature):
 
 
 # the compressed schedule of the train_loop phase
-LOOP_STEPS, LOOP_DENSIFY_FROM, LOOP_DENSIFY_EVERY, LOOP_RESET_EVERY = 60, 5, 10, 20
+LOOP_STEPS, LOOP_DENSIFY_FROM, LOOP_DENSIFY_EVERY, LOOP_RESET_EVERY = 50, 5, 10, 20
 LOOP_SYNC_EVERY = 12
 LOOP_EXTENT = 5.5   # 1.1 x the cameras' distance from the scene's centre
 
@@ -1404,7 +1677,7 @@ def phase_train_loop(dev, scene, scene_s):
                         mm=False, count_syncs=window)
     ply = ckpt.save_scene_ply(work, trainer.iteration, trainer.ts.params,
                               trainer.ts.gstate)
-    # iteration 60's round is still pending. If no round has pruned so far
+    # iteration 50's round is still pending. If no round has pruned so far
     # (after a reset every Gaussian of this random scene gains opacity), this
     # last round alone prunes below the 5th percentile of the opacities
     # instead of the default 0.005.
@@ -1756,6 +2029,10 @@ def main(argv=None) -> int:
         phase_kernel_bwd_small(dev)
     if want("kernel_bwd_full"):
         bwd = phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature)
+    at_batch4 = None
+    if want("kernel_bwd_slice"):
+        at_batch4 = phase_kernel_bwd_slice(dev, params, state, gt_image,
+                                           gt_feature)
     if want("kernel_alpha_small"):
         phase_kernel_alpha_small(dev)
     if want("kernel_alpha_full"):
@@ -1764,10 +2041,13 @@ def main(argv=None) -> int:
     del params, state, gt_image, gt_feature
     if want("train"):
         train_fwd, train_bwd = phase_train(dev, args.profile)
-    if want("kernel_loop") or want("train_loop"):
+    if want("kernel_loop") or want("train_loop") or want("train_batch"):
         t0 = time.perf_counter()
         scene = loop_scene()
         scene_s = time.perf_counter() - t0
+    if want("train_batch"):
+        batch_launches_train = phase_train_batch(dev, scene, at_batch4,
+                                                 args.profile)
     if want("kernel_loop"):
         at_loop = phase_kernel_loop(dev, scene)
     if want("train_loop"):
@@ -1789,12 +2069,13 @@ def main(argv=None) -> int:
         dict(name="raster_forward", route="cuda",
              source=src + "raster_forward.cu", replaces=tpu + "192",
              launches=serve_launches + batch_launches[0] + train_fwd
-             + loop[0], **full, library_ms=None, **at_loop[("fwd", False)],
-             **at_batch[False]),
+             + loop[0] + batch_launches_train[0], **full, library_ms=None,
+             **at_loop[("fwd", False)], **at_batch[False]),
         dict(name="raster_backward", route="cuda",
              source=src + "raster_backward.cu", replaces=tpu + "495",
-             launches=train_bwd + loop[1], **bwd, library_ms=None,
-             **at_loop[("bwd", False)]),
+             launches=train_bwd + loop[1] + batch_launches_train[1], **bwd,
+             library_ms=None, **at_loop[("bwd", False)],
+             **at_batch4[False]),
         dict(name="raster_forward_alpha_mm", route="cuda",
              source=src + "raster_forward.cu", replaces=tpu + "302",
              launches=batch_launches[1] + loop_mm[0], **full_mm,
@@ -1802,7 +2083,7 @@ def main(argv=None) -> int:
         dict(name="raster_backward_alpha_mm", route="cuda",
              source=src + "raster_backward.cu", replaces=tpu + "671",
              launches=loop_mm[1], **bwd_mm, library_ms=None,
-             **at_loop[("bwd", True)])]}))
+             **at_loop[("bwd", True)], **at_batch4[True])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

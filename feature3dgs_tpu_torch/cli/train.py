@@ -16,10 +16,19 @@ one ends the process at once. ``--profile DIR`` writes a ``torch.profiler``
 table and trace of iterations 20-30.
 
 Runs on the CUDA card (``--device cpu`` for the plain versions of the
-kernels). The multi-device flags ``--mesh``, ``--cameras_per_step``,
-``--distributed``, ``--shard_gaussians`` and ``--shard_instances`` are not
-ported and are refused. The network viewer and TensorBoard are not ported
-either: the CLI always behaves as with ``--disable_viewer``.
+kernels). ``--cameras_per_step B`` trains B cameras a step (one sort, one
+forward and one backward launch for the B views; ``--mesh 1x1`` implied);
+``--mesh DxT`` spreads the batch over D data rows and each image's tile
+grid over T ranks of a torchrun launch, one process a card:
+
+    torchrun --nproc_per_node 4 -m feature3dgs_tpu_torch.cli.train \
+        -s <scene> -m <out> -f lseg --mesh 2x2 --cameras_per_step 4
+
+D * T must equal torchrun's world size; rank 0 alone writes the output
+folder, logs and checkpoints. ``--distributed``, ``--shard_gaussians`` and
+``--shard_instances`` are not ported and are refused. The network viewer
+and TensorBoard are not ported either: the CLI always behaves as with
+``--disable_viewer``.
 """
 from __future__ import annotations
 
@@ -34,12 +43,11 @@ import uuid
 from argparse import ArgumentParser
 
 import torch
+import torch.distributed as dist
 
 
 def _refuse_unported(args):
     unported = [flag for flag, on in (
-        ("--mesh", args.mesh is not None),
-        ("--cameras_per_step", args.cameras_per_step is not None),
         ("--distributed", args.distributed),
         ("--shard_gaussians", args.shard_gaussians),
         ("--shard_instances", args.shard_instances)) if on]
@@ -88,9 +96,17 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--allow_missing_features", action="store_true",
                         help="train cameras without a teacher feature map "
                              "get zeros instead of an error")
+    parser.add_argument("--mesh", type=str, default=None, metavar="DxT",
+                        help="training mesh 'data x tile', e.g. '2x2': "
+                             "cameras batch over the data axis, each image's "
+                             "tile grid shards over the tile axis; data * "
+                             "tile must equal torchrun's world size")
+    parser.add_argument("--cameras_per_step", type=int, default=None,
+                        help="B cameras a step, each counted as one "
+                             "iteration (the loss is their mean); a multiple "
+                             "of the mesh's data axis. Implies --mesh 1x1 "
+                             "when no mesh is given.")
     # multi-device flags of scripts/train.py that this package refuses
-    parser.add_argument("--mesh", type=str, default=None, metavar="DxT")
-    parser.add_argument("--cameras_per_step", type=int, default=None)
     parser.add_argument("--distributed", action="store_true")
     parser.add_argument("--shard_gaussians", action="store_true")
     parser.add_argument("--shard_instances", action="store_true")
@@ -119,9 +135,31 @@ def _graceful_stop(stop: dict):
             signal.signal(s, h)
 
 
+def _mesh_shape(args):
+    """(data, tile) of --mesh / --cameras_per_step, or None for the
+    single-camera Trainer. Exits naming the world size the mesh needs when
+    torchrun's WORLD_SIZE (1 without torchrun) differs."""
+    if not (args.mesh or args.cameras_per_step):
+        return None
+    try:
+        n_data, n_tile = (int(x) for x in
+                          (args.mesh or "1x1").lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh takes DxT, e.g. 2x2; got {args.mesh!r}")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if n_data * n_tile != world:
+        raise SystemExit(
+            f"--mesh {n_data}x{n_tile} needs a world size of "
+            f"{n_data * n_tile} (torchrun --nproc_per_node "
+            f"{n_data * n_tile} -m feature3dgs_tpu_torch.cli.train ...); "
+            f"this run has a world size of {world}")
+    return n_data, n_tile
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    shape = _mesh_shape(args)
     args.save_iterations.append(args.iterations)
 
     from feature3dgs_tpu_torch import config as C
@@ -131,68 +169,102 @@ def main(argv=None) -> int:
     from feature3dgs_tpu_torch.train.trainer import Trainer
 
     device = default_device(args.device)
+    if shape is not None:
+        from feature3dgs_tpu_torch.parallel.distributed import initialize
+        initialize(device)
+    n_proc = dist.get_world_size() if dist.is_initialized() else 1
+    is_main = n_proc == 1 or dist.get_rank() == 0
     mcfg = C.extract_model(args)
     ocfg = C.extract_optimization(args)
     rcfg = C.extract_raster(args)
 
     if not mcfg.model_path:
+        if n_proc > 1:
+            raise SystemExit("a multi-process run needs an explicit -m/"
+                             "--model_path (a random one per process would "
+                             "scatter the output)")
         mcfg.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
-    os.makedirs(mcfg.model_path, exist_ok=True)
-    print(f"Output folder: {mcfg.model_path}")
-    print("[viewer] the network viewer and TensorBoard are not ported: "
-          "running as with --disable_viewer")
+    log = print if is_main else (lambda *a, **k: None)
+    if is_main:
+        os.makedirs(mcfg.model_path, exist_ok=True)
+    log(f"Output folder: {mcfg.model_path}")
+    log("[viewer] the network viewer and TensorBoard are not ported: "
+        "running as with --disable_viewer")
 
     scene = load_scene(
         mcfg.source_path, foundation_model=mcfg.foundation_model or None,
         images_dir=mcfg.images, resolution=mcfg.resolution,
         eval_split=mcfg.eval, white_background=mcfg.white_background,
         allow_missing_features=args.allow_missing_features)
-    print(f"Loaded scene: {len(scene.train_cameras)} train / "
-          f"{len(scene.test_cameras)} test cameras, "
-          f"{scene.points.shape[0]} points, feature dim {scene.feature_dim}")
-    ckpt.save_cfg_args(mcfg.model_path, {
-        **vars(args), "source_path": mcfg.source_path,
-        "model_path": mcfg.model_path})
-    ckpt.save_cameras_json(mcfg.model_path, scene.train_cameras)
+    log(f"Loaded scene: {len(scene.train_cameras)} train / "
+        f"{len(scene.test_cameras)} test cameras, "
+        f"{scene.points.shape[0]} points, feature dim {scene.feature_dim}")
+    if is_main:
+        ckpt.save_cfg_args(mcfg.model_path, {
+            **vars(args), "source_path": mcfg.source_path,
+            "model_path": mcfg.model_path})
+        ckpt.save_cameras_json(mcfg.model_path, scene.train_cameras)
 
-    trainer = Trainer(scene, ocfg=ocfg, rcfg=rcfg,
-                      max_sh_degree=mcfg.sh_degree, speedup=mcfg.speedup,
-                      white_background=mcfg.white_background, seed=args.seed,
-                      gt_cache_bytes=args.gt_cache_mb * (1 << 20) or None,
-                      device=device)
+    tkw = dict(ocfg=ocfg, rcfg=rcfg, max_sh_degree=mcfg.sh_degree,
+               speedup=mcfg.speedup, white_background=mcfg.white_background,
+               seed=args.seed,
+               gt_cache_bytes=args.gt_cache_mb * (1 << 20) or None,
+               device=device)
+    if shape is not None:
+        from feature3dgs_tpu_torch.parallel import make_mesh
+        from feature3dgs_tpu_torch.parallel.trainer import DistributedTrainer
+        trainer = DistributedTrainer(scene, mesh=make_mesh(shape),
+                                     cameras_per_step=args.cameras_per_step,
+                                     **tkw)
+        log(f"Mesh training: data={shape[0]} x tile={shape[1]} over "
+            f"{n_proc} processes, {trainer.batch} cameras/step")
+    else:
+        trainer = Trainer(scene, **tkw)
     if args.start_checkpoint:
         ts, it = ckpt.load_checkpoint(args.start_checkpoint, device=device)
         trainer.restore_state(ts)
         trainer.iteration = it
-        print(f"Restored checkpoint at iteration {it}")
+        log(f"Restored checkpoint at iteration {it}")
 
     stop = {"sig": None}
     ema_loss = 0.0
     t_start = t_sync = time.time()
     last_sync_it = last_logged_it = 0
     prof = None
-    log_path = os.path.join(mcfg.model_path, "train_log.jsonl")
+    bsz = getattr(trainer, "batch", 1)
+    stop_now = False
+    log_path = (os.path.join(mcfg.model_path, "train_log.jsonl") if is_main
+                else os.devnull)
     with _graceful_stop(stop), open(log_path, "a") as logf:
         while trainer.iteration < ocfg.iterations:
             if args.profile and prof is None and trainer.iteration >= 20:
                 prof = _start_profile()
-            it = trainer.iteration + 1
-            # sync only where the host reads metrics: every sync_every
-            # iterations and at report, save and checkpoint points
-            sync = (it % args.sync_every == 0 or it >= ocfg.iterations
-                    or it in args.test_iterations
-                    or it in args.save_iterations
-                    or it in args.checkpoint_iterations
+            # a step counts as the iterations of its span; sync only where
+            # the host reads metrics: every sync_every iterations and at
+            # report, save and checkpoint points inside the span
+            span = range(trainer.iteration + 1, trainer.iteration + bsz + 1)
+            it = span[-1]
+            sync = (it % args.sync_every < bsz or it >= ocfg.iterations
+                    or any(i in args.test_iterations
+                           or i in args.save_iterations
+                           or i in args.checkpoint_iterations for i in span)
                     or bool(args.profile and it >= 20))
             metrics = trainer.step(sync=sync)
-            if stop["sig"] is not None:
+            stop_now = stop["sig"] is not None
+            if n_proc > 1:
+                # the ranks stop together, at a sync point (every rank
+                # reaches the same ones), or the others would wait in the
+                # next step's collectives
+                stop_now = sync and _agree(stop_now, device)
+            if stop_now:
                 # after densification, like a scheduled checkpoint
                 trainer.flush_maintenance()
-                ckpt.save_checkpoint(mcfg.model_path, trainer.iteration,
-                                     trainer.ts)
-                print(f"[preempt] checkpoint saved at iteration "
-                      f"{trainer.iteration}; resume with --start_checkpoint",
-                      flush=True)
+                if is_main:
+                    ckpt.save_checkpoint(mcfg.model_path, trainer.iteration,
+                                         trainer.ts)
+                log(f"[preempt] checkpoint saved at iteration "
+                    f"{trainer.iteration}; resume with --start_checkpoint",
+                    flush=True)
                 break
             if prof is not None and it >= 30:
                 _stop_profile(prof, args.profile, device)
@@ -207,9 +279,9 @@ def main(argv=None) -> int:
             ms_it = (time.time() - t_sync) * 1000 / max(it - last_sync_it, 1)
             t_sync, last_sync_it = time.time(), it
             if not args.quiet:
-                print(f"[{it}/{ocfg.iterations}] loss={ema_loss:.5f} "
-                      f"psnr={metrics['psnr']:.2f} "
-                      f"pts={int(metrics['num_active'])} ({ms_it:.0f} ms/it)")
+                log(f"[{it}/{ocfg.iterations}] loss={ema_loss:.5f} "
+                    f"psnr={metrics['psnr']:.2f} "
+                    f"pts={int(metrics['num_active'])} ({ms_it:.0f} ms/it)")
             # the log rides the existing sync points, about every 50
             # iterations
             if it - last_logged_it >= 50 or it >= ocfg.iterations:
@@ -219,27 +291,38 @@ def main(argv=None) -> int:
                 logf.flush()
                 last_logged_it = it
 
-            if it in args.test_iterations:
+            if is_main and any(i in args.test_iterations for i in span):
                 _report(trainer, scene, it)
-            if it in args.save_iterations:
+            if is_main and any(i in args.save_iterations for i in span):
                 print(f"\n[ITER {it}] Saving Gaussians")
                 ckpt.save_scene_ply(mcfg.model_path, it, trainer.ts.params,
                                     trainer.ts.gstate)
                 if mcfg.speedup and trainer.ts.decoder is not None:
                     ckpt.save_decoder_checkpoint(mcfg.model_path, it,
                                                  trainer.ts.decoder)
-            if it in args.checkpoint_iterations:
+            if any(i in args.checkpoint_iterations for i in span):
                 # full checkpoints come after the iteration's densification
                 # in the original (train.py:151-153 follow :129-140); the
-                # PLY above comes before it (:121-126)
+                # PLY above comes before it (:121-126). Every rank flushes
+                # (its state stays the others'), rank 0 writes
                 trainer.flush_maintenance()
-                print(f"\n[ITER {it}] Saving Checkpoint")
-                ckpt.save_checkpoint(mcfg.model_path, it, trainer.ts)
+                if is_main:
+                    print(f"\n[ITER {it}] Saving Checkpoint")
+                    ckpt.save_checkpoint(mcfg.model_path, it, trainer.ts)
 
-    if stop["sig"] is not None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if stop_now:
         return 0
-    print("\nTraining complete.")
+    log("\nTraining complete.")
     return 0
+
+
+def _agree(flag: bool, device) -> bool:
+    """Whether any rank's ``flag`` is set (one all-reduce)."""
+    t = torch.tensor([float(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 def _start_profile():

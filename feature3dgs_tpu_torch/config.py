@@ -6,7 +6,9 @@ and rasterizer flag groups with the same names, shorthands and defaults,
 and ``combine_with_saved``, which fills flags left at their defaults from
 ``<model_path>/cfg_args`` — the JSON either trainer writes, or the original
 code's repr'd ``Namespace(...)``. Keys of ``cfg_args`` that no flag here
-names (TPU-only rasterizer settings) are ignored. ``--alpha_matmul`` is this
+names (TPU-only rasterizer settings) are ignored; ``--tile_capacity``,
+``--bwd_chunk`` and ``--matmul_precision`` are accepted so that the JAX
+scripts' command lines parse, and select nothing. ``--alpha_matmul`` is this
 package's own flag: it switches both compositing kernels to their
 alpha_matmul mode (``RasterConfig.alpha_matmul``).
 """
@@ -104,9 +106,16 @@ def add_raster_args(parser: argparse.ArgumentParser):
     g.add_argument("--tile_w", type=int, default=r.tile_w)
     g.add_argument("--tile_h", type=int, default=r.tile_h)
     g.add_argument("--chunk", type=int, default=r.chunk)
+    g.add_argument("--bwd_chunk", type=int, default=64,
+                   help="accepted and ignored: the backward kernel walks "
+                        "its own chunk of 32 entries")
     g.add_argument("--instance_capacity", type=int, default=r.instance_capacity)
     # scripts/render.py's flag; rendering here never truncates a tile list
     g.add_argument("--tile_capacity", type=int, default=1 << 12)
+    g.add_argument("--matmul_precision", type=str, default="highest",
+                   choices=["highest", "high", "default"],
+                   help="accepted and ignored: every product here keeps f32 "
+                        "accuracy (3xTF32 in the kernels, TF32 off elsewhere)")
     g.add_argument("--alpha_matmul", action="store_true",
                    help="evaluate the Gaussian exponent as a six-term dot "
                         "over tile-local monomials in both kernels "

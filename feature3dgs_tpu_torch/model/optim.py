@@ -82,15 +82,27 @@ def xyz_lr(cfg: LRConfig, step: int, spatial_lr_scale: float) -> float:
                     max_steps=cfg.position_lr_max_steps)
 
 
-def group_lrs(cfg: LRConfig, step: int, spatial_lr_scale: float) -> dict:
-    """Per-field learning rates (floats) at one iteration."""
-    return {"xyz": xyz_lr(cfg, step, spatial_lr_scale),
-            "features_dc": cfg.feature_lr,
-            "features_rest": cfg.feature_lr / 20.0,
-            "scaling": cfg.scaling_lr,
-            "rotation": cfg.rotation_lr,
-            "opacity": cfg.opacity_lr,
-            "semantic_feature": cfg.semantic_feature_lr}
+def group_lrs(cfg: LRConfig, step, spatial_lr_scale: float) -> dict:
+    """Per-field learning rates (floats) at one iteration, or summed over a
+    span of B iterations when ``step`` is a sequence (the batched trainer's
+    one Adam update per B camera-iterations: the linear-scaling rule of
+    ``feature3dgs_tpu/model/optim.py:group_lrs``). The xyz rate is summed
+    in float32 in span order; every other rate is B times its own. A scalar
+    step gives the one-iteration values."""
+    if np.ndim(step) == 0:
+        xyz, b = xyz_lr(cfg, step, spatial_lr_scale), 1
+    else:
+        b, xyz = len(step), np.float32(0)
+        for s in step:
+            xyz = np.float32(xyz + np.float32(xyz_lr(cfg, s, spatial_lr_scale)))
+        xyz = float(xyz)
+    return {"xyz": xyz,
+            "features_dc": b * cfg.feature_lr,
+            "features_rest": b * cfg.feature_lr / 20.0,
+            "scaling": b * cfg.scaling_lr,
+            "rotation": b * cfg.rotation_lr,
+            "opacity": b * cfg.opacity_lr,
+            "semantic_feature": b * cfg.semantic_feature_lr}
 
 
 def _zeros_on(tensors: dict, device) -> dict:

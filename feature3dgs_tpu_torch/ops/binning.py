@@ -133,3 +133,24 @@ def bin_gaussians(rect_min: torch.Tensor, rect_max: torch.Tensor,
                                instance_capacity=instance_capacity)
     return bins._replace(total=bins.total[0],
                          num_tiles_touched=bins.num_tiles_touched[0])
+
+
+def tile_slices(gid_sorted: torch.Tensor, tile_starts: torch.Tensor,
+                tile_counts: torch.Tensor, ranges) -> list:
+    """The lists of each tile range [t0, t1) of ``ranges`` as a call over
+    that slice of the grid takes them: (gid_sorted's sub-range, starts
+    rebased to it, counts). The lists must lie in tile order and cover
+    gid_sorted once (this module's layout), so tile t's list starts at
+    entry ``tile_starts[t]`` and the lists of a range are one sub-range.
+    One host read gets every range's two ends."""
+    n_inst = gid_sorted.shape[0]
+    starts = torch.cat([tile_starts.long(), tile_starts.new_full(
+        (1,), n_inst, dtype=torch.long)])
+    cuts = [t for r in ranges for t in r]
+    ends = starts[torch.tensor(cuts, dtype=torch.long,
+                               device=starts.device)].tolist() if cuts else []
+    out = []
+    for (t0, t1), (a, b) in zip(ranges, zip(ends[::2], ends[1::2])):
+        out.append((gid_sorted[a:b], (tile_starts[t0:t1] - a).to(torch.int32),
+                    tile_counts[t0:t1]))
+    return out

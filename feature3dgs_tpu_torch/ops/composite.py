@@ -154,11 +154,9 @@ def composite_plain(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     pix = tile_pixel_coords(grid, n_tiles, tile_base, dev)
     # alpha_matmul: each tile's origin is its first pixel
     local = (pix[:, 0], tile_monomials(grid, dev)) if alpha_matmul else None
-    row0 = ((torch.arange(n_tiles, device=dev) + tile_base)
-            // grid.num_tiles * n_per_camera)
+    row0 = _tile_row0(grid, n_tiles, tile_base, n_per_camera, dev)
     step = max(1, _BATCH_ELEMS // (chunk * p))
-    for t0, t1 in _tile_batches(n_tiles, step, tile_base,
-                                grid.num_tiles if n_per_camera else 0):
+    for t0, t1 in _tile_batches(n_tiles, step, tile_base, grid.num_tiles):
         longest = int(counts[t0:t1].max())
         if longest == 0:
             continue
@@ -171,18 +169,26 @@ def composite_plain(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     return CompositeOutput(color, feature, depth_out, final_t, n_contrib)
 
 
-def _tile_batches(n_tiles: int, step: int, tile_base: int = 0,
-                  per_camera: int = 0):
-    """[t0, t1) batches of at most ``step`` tiles; with ``per_camera`` tiles
-    a camera, none straddles two cameras and each camera's batches start
-    at its first tile."""
-    edges = [0, n_tiles]
-    if per_camera:
-        first = -tile_base % per_camera
-        edges[1:1] = range(first or per_camera, n_tiles, per_camera)
-    for e0, e1 in zip(edges, edges[1:]):
-        for t0 in range(e0, e1, step):
-            yield t0, min(t0 + step, e1)
+def _tile_row0(grid: TileGrid, n_tiles: int, tile_base: int,
+                 n_per_camera: int, device) -> torch.Tensor:
+    """[n_tiles] first row of each tile's camera in the per-camera inputs
+    (all 0 unbatched)."""
+    return ((torch.arange(n_tiles, device=device) + tile_base)
+            // grid.num_tiles * n_per_camera)
+
+
+def _tile_batches(n_tiles: int, step: int, tile_base: int, per_camera: int):
+    """[t0, t1) batches of at most ``step`` tiles, cut where a camera's grid
+    of ``per_camera`` tiles starts and where the camera-local tile index is
+    a multiple of ``step``: every tile lands in the batch it has in a call
+    over its whole camera, whatever slice of the grid (``tile_base``) or
+    stack of cameras a call covers."""
+    t0 = 0
+    while t0 < n_tiles:
+        local = (tile_base + t0) % per_camera
+        t1 = min(n_tiles, t0 + step - local % step, t0 + per_camera - local)
+        yield t0, t1
+        t0 = t1
 
 
 def _composite_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
@@ -262,6 +268,7 @@ def composite_plain_backward(xy, conic, opacity, rgb, depth, feat, gid_sorted,
                              tile_starts, tile_counts, grid: TileGrid,
                              g_color, g_feat, g_depth, g_final_t, final_t,
                              n_contrib, *, chunk: int,
+                             tile_base: int = 0, n_per_camera: int = 0,
                              feature_alpha_grad: bool = False,
                              alpha_matmul: bool = False,
                              stats: dict | None = None) -> BackwardRows:
@@ -276,10 +283,21 @@ def composite_plain_backward(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     alpha like a colour channel. Rows the walk never reaches (past each
     tile's deepest contributor) are zero.
 
+    ``tile_base`` and ``n_per_camera`` mean what they mean to
+    ``composite_plain``: tile t is global tile ``tile_base + t`` (its pixels
+    and its camera), and with ``n_per_camera`` = N > 0 the splat inputs are
+    [B*N] stacks read at row b * N + id while feat [N,F] is read at row id.
+    The rows written are one per entry of the lists given; a slice of the
+    grid passes its own sub-range of gid_sorted with rebased starts. Tiles
+    are batched as a call over each whole camera batches them
+    (``_tile_batches``), so a slice's rows and a batched camera's rows are
+    bit-equal to the rows of that camera's own full call.
+
     ``stats``, when given, gets the work these inputs need: "walked"
     (entry, pixel) pairs of the entries before each tile's deepest
-    contributor, "contributing" pairs, "entries_walked", and [N] bool masks
-    "walked_gaussians" and "contributing_gaussians"."""
+    contributor, "contributing" pairs, "entries_walked", and bool masks
+    over the rows of xy (per camera when batched) "walked_gaussians" and
+    "contributing_gaussians"."""
     dev = xy.device
     n_tiles = tile_starts.shape[0]
     p = grid.pixels_per_tile
@@ -294,18 +312,18 @@ def composite_plain_backward(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     gid = gid_sorted.long()
     # the walk stops at each tile's deepest contributor
     depth_walk = torch.minimum(n_contrib.long().amax(1), counts)
-    pix = tile_pixel_coords(grid, n_tiles, device=dev)
+    pix = tile_pixel_coords(grid, n_tiles, tile_base, dev)
     local = (pix[:, 0], tile_monomials(grid, dev)) if alpha_matmul else None
+    row0 = _tile_row0(grid, n_tiles, tile_base, n_per_camera, dev)
     step = max(1, _BATCH_ELEMS // (chunk * p))
-    for t0 in range(0, n_tiles, step):
-        t1 = min(t0 + step, n_tiles)
+    for t0, t1 in _tile_batches(n_tiles, step, tile_base, grid.num_tiles):
         longest = int(depth_walk[t0:t1].max())
         if longest == 0:
             continue
         _backward_tiles(
             xy, conic, opacity, rgb, depth, feat, gid, starts[t0:t1],
-            depth_walk[t0:t1], pix[t0:t1], g_color[t0:t1], g_feat[t0:t1],
-            g_depth[t0:t1], g_final_t[t0:t1], final_t[t0:t1],
+            depth_walk[t0:t1], pix[t0:t1], row0[t0:t1], g_color[t0:t1],
+            g_feat[t0:t1], g_depth[t0:t1], g_final_t[t0:t1], final_t[t0:t1],
             n_contrib[t0:t1].long(), chunk, longest, feature_alpha_grad,
             geom, feature, stats,
             None if local is None else (local[0][t0:t1], local[1]))
@@ -313,9 +331,9 @@ def composite_plain_backward(xy, conic, opacity, rgb, depth, feat, gid_sorted,
 
 
 def _backward_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
-                    walk, pix, g_color, g_feat, g_depth, g_final_t, final_t,
-                    ncon, chunk: int, longest: int, fag: bool, geom, feature,
-                    stats, local=None):
+                    walk, pix, row0, g_color, g_feat, g_depth, g_final_t,
+                    final_t, ncon, chunk: int, longest: int, fag: bool, geom,
+                    feature, stats, local=None):
     dev = xy.device
     px = pix[:, None, :, 0]                              # [tb,1,P]
     py = pix[:, None, :, 1]
@@ -333,8 +351,9 @@ def _backward_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
         slot = torch.where(walked, starts[:, None] + pos[None, :],
                            torch.zeros_like(starts)[:, None])
         ids = torch.where(walked, gid[slot], torch.zeros_like(slot))
-        g_xy, g_conic = xy[ids], conic[ids]
-        g_op = opacity[ids][..., None]                   # [tb,K,1]
+        rows = ids + row0[:, None]                       # this camera's rows
+        g_xy, g_conic = xy[rows], conic[rows]
+        g_op = opacity[rows][..., None]                  # [tb,K,1]
         ca, cb, cc = (g_conic[..., i:i + 1] for i in range(3))
         if local is not None:
             coeff, xl, yl = _alpha_coeff(g_xy, g_conic, local[0])
@@ -352,7 +371,7 @@ def _backward_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
         revcum = torch.flip(torch.cumsum(torch.flip(log1m, [1]), 1), [1])
         t_before = t_end[:, None, :] * torch.exp(-revcum)
         w = torch.where(mask, alpha * t_before, zero)
-        c_aug = torch.cat([rgb[ids], depth[ids][..., None]], -1)
+        c_aug = torch.cat([rgb[rows], depth[rows][..., None]], -1)
         if fag:
             c_aug = torch.cat([c_aug, feat[ids]], -1)
         u = torch.einsum("tkc,tpc->tkp", c_aug, g_aug)
@@ -380,11 +399,11 @@ def _backward_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
                    torch.sum(-0.5 * dx * dx * d_pow, 2),
                    torch.sum(-dx * dy * d_pow, 2),
                    torch.sum(-0.5 * dy * dy * d_pow, 2)]
-        rows = torch.stack(geo + [torch.sum(d_op, 2)], -1)   # [tb,K,6]
-        rows = torch.cat([rows, torch.einsum("tkp,tpc->tkc", w, g_color),
-                          torch.einsum("tkp,tp->tk", w, g_depth)[..., None]],
-                         -1)
-        geom[slot[walked]] = rows[walked]
+        out = torch.stack(geo + [torch.sum(d_op, 2)], -1)    # [tb,K,6]
+        out = torch.cat([out, torch.einsum("tkp,tpc->tkc", w, g_color),
+                         torch.einsum("tkp,tp->tk", w, g_depth)[..., None]],
+                        -1)
+        geom[slot[walked]] = out[walked]
         feature[slot[walked]] = torch.einsum("tkp,tpf->tkf", w, g_feat)[walked]
         if stats is not None:
             stats["walked"] = (stats.get("walked", 0)
@@ -397,6 +416,6 @@ def _backward_tiles(xy, conic, opacity, rgb, depth, feat, gid, starts,
                              ("contributing_gaussians", mask.any(-1))):
                 seen = stats.setdefault(key, torch.zeros(
                     xy.shape[0], dtype=torch.bool, device=dev))
-                seen[ids[hit]] = True
+                seen[rows[hit]] = True
         suffix = suffix + torch.sum(m, 1)
         t_end = t_end * torch.exp(-torch.sum(log1m, 1))

@@ -27,6 +27,18 @@
 // Output: d_geom [L, 10] = (x, y, conic a, b, c, opacity, r, g, b, depth)
 // and d_feat [L, F], one row per list entry. Every row of every tile's
 // list is written, zeros past the tile's deepest contributor.
+// Slices and batches (the forward's tile_base and n_per_camera, raster_
+// forward.cu): tile t of a launch is global tile tg = tile_base + t, with
+// pixels at tile_x = tg % grid_x, tile_y = (tg / grid_x) % grid_y; with
+// n_per_camera = N > 0 it belongs to camera b = tg / (grid_x * grid_y),
+// whose xy, conic, opacity, rgb and depth are rows b * N + id of [B*N]
+// arrays (64-bit offsets), while feat [N,F] is one for all cameras and read
+// at row id. Everything else (the cotangents, final_T, n_contrib, the
+// lists and the rows written) is indexed by t and the list positions the
+// call is given, so a slice of the grid is launched with its own sub-range
+// of gid_sorted and rebased starts. The per-tile arithmetic does not depend
+// on either, so a slice's rows and a batched camera's rows are bit-equal to
+// the rows of that camera's own full launch.
 //
 // What bounds it on the card: by the roofline, bytes: the pixel cotangents
 // and the saved state, (F + 7) * 4 bytes a pixel, read once, and (10 + F) *
@@ -159,7 +171,8 @@ struct Args {
   const float* g_final_t;
   const float* final_t;
   const int* n_contrib;
-  int grid_x, tile_w, tile_h, f_dim, fag, entries, ring_rows;
+  int tile_base, n_per_camera, grid_x, grid_y, tile_w, tile_h, f_dim, fag,
+      entries, ring_rows;
   float* d_geom;
   float* d_feat;
 };
@@ -202,22 +215,32 @@ struct Entry {
   float v[N_GEOM];
 };
 
-// Request the scalars of Gaussian g (an empty entry when !ok). The loads
-// are only waited for where store_entry uses them.
+// The first row of this block's camera in xy, conic, opacity, rgb and
+// depth (0 unbatched). Computed where it is used, from the launch's
+// constants, so that it holds no register through the walk.
+__device__ __forceinline__ size_t camera_row0(const Args& a) {
+  return (size_t)((a.tile_base + (int)blockIdx.x) / (a.grid_x * a.grid_y)) *
+         a.n_per_camera;
+}
+
+// Request the scalars of Gaussian g (an empty entry when !ok): the
+// camera's row of it; the id, which addresses feat, is kept as it is. The
+// loads are only waited for where store_entry uses them.
 __device__ __forceinline__ void load_entry(const Args& a, int g, bool ok,
                                            Entry& e) {
   e.g = g;
-  e.v[0] = ok ? a.xy[2 * g] : 0.f;
-  e.v[1] = ok ? a.xy[2 * g + 1] : 0.f;
-  e.v[2] = ok ? a.conic[3 * g] : 0.f;
-  e.v[3] = ok ? a.conic[3 * g + 1] : 0.f;
-  e.v[4] = ok ? a.conic[3 * g + 2] : 0.f;
+  const size_t r = camera_row0(a) + g;
+  e.v[0] = ok ? a.xy[2 * r] : 0.f;
+  e.v[1] = ok ? a.xy[2 * r + 1] : 0.f;
+  e.v[2] = ok ? a.conic[3 * r] : 0.f;
+  e.v[3] = ok ? a.conic[3 * r + 1] : 0.f;
+  e.v[4] = ok ? a.conic[3 * r + 2] : 0.f;
   // opacity 0 never reaches ALPHA_MIN: empty entries never count
-  e.v[5] = ok ? a.opacity[g] : 0.f;
-  e.v[6] = ok ? a.rgb[3 * g] : 0.f;
-  e.v[7] = ok ? a.rgb[3 * g + 1] : 0.f;
-  e.v[8] = ok ? a.rgb[3 * g + 2] : 0.f;
-  e.v[9] = ok ? a.depth[g] : 0.f;
+  e.v[5] = ok ? a.opacity[r] : 0.f;
+  e.v[6] = ok ? a.rgb[3 * r] : 0.f;
+  e.v[7] = ok ? a.rgb[3 * r + 1] : 0.f;
+  e.v[8] = ok ? a.rgb[3 * r + 2] : 0.f;
+  e.v[9] = ok ? a.depth[r] : 0.f;
 }
 
 // Stage entry e as row k of its chunk's slot.
@@ -293,8 +316,9 @@ __global__ void __launch_bounds__(MAXT) raster_backward_kernel(const Args a) {
   const int li = lane % WARP;
   const int fg_row = li >> 2;  // the mma fragments' g
   const int fg_col = li & 3;   // and t
-  const int tile_x = t % a.grid_x;
-  const int tile_y = t / a.grid_x;
+  const int tg = a.tile_base + t;
+  const int tile_x = tg % a.grid_x;
+  const int tile_y = (tg / a.grid_x) % a.grid_y;
   const float px = (float)(tile_x * a.tile_w + lane % a.tile_w);
   const float py = (float)(tile_y * a.tile_h + lane / a.tile_w);
   // alpha_matmul mode: the tile's first pixel and this pixel's monomials
@@ -650,10 +674,12 @@ const char* f3dgs_error_string(int code) {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched). The
 // caller guarantees that every tile's list lies in gid_sorted and holds
-// valid Gaussian ids; rows of gid_sorted that no tile's list covers are
-// left unwritten. alpha_mm != 0 selects the alpha_matmul mode, which must
-// be the mode of the forward that produced final_t and n_contrib. entries
-// and ring_rows come from ops/cuda_raster.py:backward_plan.
+// valid Gaussian ids, and with n_per_camera = N > 0 that the per-camera
+// arrays hold N rows for every camera the tiles tile_base .. tile_base +
+// n_tiles reach; rows of gid_sorted that no tile's list covers are left
+// unwritten. alpha_mm != 0 selects the alpha_matmul mode, which must be the
+// mode of the forward that produced final_t and n_contrib. entries and
+// ring_rows come from ops/cuda_raster.py:backward_plan.
 int f3dgs_raster_backward(const float* xy, const float* conic,
                           const float* opacity, const float* rgb,
                           const float* depth, const float* feat,
@@ -661,13 +687,15 @@ int f3dgs_raster_backward(const float* xy, const float* conic,
                           const int* tile_counts, const float* g_color,
                           const float* g_feat, const float* g_depth,
                           const float* g_final_t, const float* final_t,
-                          const int* n_contrib, int n_tiles, int grid_x,
+                          const int* n_contrib, int n_tiles, int tile_base,
+                          int n_per_camera, int grid_x, int grid_y,
                           int tile_w, int tile_h, int f_dim, int fag,
                           int alpha_mm, int entries, int ring_rows,
                           float* d_geom, float* d_feat, void* stream) {
   const int p_pix = tile_w * tile_h;
   if (p_pix <= 0 || p_pix > MAX_THREADS || p_pix % WARP != 0 || f_dim < 0 ||
-      grid_x <= 0 || !plan_ok(p_pix, entries, ring_rows))
+      grid_x <= 0 || grid_y <= 0 || tile_base < 0 || n_per_camera < 0 ||
+      !plan_ok(p_pix, entries, ring_rows))
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return 0;
   const bool mm = alpha_mm != 0;
@@ -678,8 +706,9 @@ int f3dgs_raster_backward(const float* xy, const float* conic,
   if (err != cudaSuccess) return (int)err;
   const Args a = {xy, conic, opacity, rgb, depth, feat, gid_sorted,
                   tile_starts, tile_counts, g_color, g_feat, g_depth,
-                  g_final_t, final_t, n_contrib, grid_x, tile_w, tile_h,
-                  f_dim, fag, entries, ring_rows, d_geom, d_feat};
+                  g_final_t, final_t, n_contrib, tile_base, n_per_camera,
+                  grid_x, grid_y, tile_w, tile_h, f_dim, fag, entries,
+                  ring_rows, d_geom, d_feat};
   kernel<<<n_tiles, p_pix, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

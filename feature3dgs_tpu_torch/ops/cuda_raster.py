@@ -225,7 +225,7 @@ def _library(name: str):
             p, i = ctypes.c_void_p, ctypes.c_int
             for lib_name, sig, n_plan in (
                     ("raster_forward", [p] * 9 + [i] * 12 + [p] * 6, 4),
-                    ("raster_backward", [p] * 15 + [i] * 9 + [p] * 3, 5)):
+                    ("raster_backward", [p] * 15 + [i] * 12 + [p] * 3, 5)):
                 lib = ctypes.CDLL(str(paths[lib_name]))
                 fn = getattr(lib, f"f3dgs_{lib_name}")
                 fn.argtypes, fn.restype = sig, i
@@ -423,6 +423,7 @@ def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
 def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
                          tile_starts, tile_counts, grid: TileGrid, g_color,
                          g_feat, g_depth, g_final_t, final_t, n_contrib, *,
+                         tile_base: int = 0, n_per_camera: int = 0,
                          feature_alpha_grad: bool = False,
                          alpha_matmul: bool = False,
                          check_lists: bool = True,
@@ -438,11 +439,21 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     with one host sync, and the autograd path skips it because its forward
     checked the same lists. ``alpha_matmul`` must be the mode of the forward
     that made ``final_t`` and ``n_contrib``. ``out`` takes preallocated rows (the smoke
-    check fills them with NaN to show that every row is written)."""
+    check fills them with NaN to show that every row is written).
+
+    ``tile_base`` and ``n_per_camera`` mean what they mean to
+    ``raster_forward_cuda``: tile t is global tile ``tile_base + t``, and
+    with ``n_per_camera`` = N > 0 the splat inputs are [B*N] stacks read at
+    row b * N + id while feat [N,F] is shared. Everything else is indexed by
+    the tiles and lists the call is given: a slice of the grid passes its
+    own sub-range of gid_sorted with rebased starts (so the lists still
+    cover it exactly once) and its own rows of the cotangents and saved
+    state. The rows of a slice, or of one camera of a batch, are bit-equal
+    to those of that camera's full launch."""
     global BACKWARD_LAUNCHES, BACKWARD_MM_LAUNCHES
     dev, n, f_dim, n_tiles, p = _check_splats(
         xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
-        tile_counts, grid)
+        tile_counts, grid, tile_base=tile_base, n_per_camera=n_per_camera)
     f32 = torch.float32
     _check("g_color", g_color, f32, (n_tiles, p, 3), dev)
     _check("g_feat", g_feat, f32, (n_tiles, p, f_dim), dev)
@@ -453,8 +464,9 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     plan = backward_plan(p, f_dim, alpha_matmul)
     _check_aligned("g_feat", g_feat)
     n_inst = gid_sorted.shape[0]
-    if max(n * max(f_dim, 3), n_inst * max(f_dim, 10),
-           n_tiles * p * max(f_dim, 3)) >= 2 ** 31:
+    # row and pixel offsets are 64-bit in the kernel; what stays int is the
+    # list's length and the tile index
+    if max(n_inst, tile_base + n_tiles) >= 2 ** 31:
         raise ValueError("sizes exceed the kernel's 32-bit indexing")
     lib = _library("raster_backward")
     _check_smem(lib, "raster_backward", plan.smem_bytes, p, f_dim,
@@ -475,8 +487,9 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             gid_sorted.data_ptr(), tile_starts.data_ptr(),
             tile_counts.data_ptr(), g_color.data_ptr(), g_feat.data_ptr(),
             g_depth.data_ptr(), g_final_t.data_ptr(), final_t.data_ptr(),
-            n_contrib.data_ptr(), n_tiles, grid.grid_x, grid.tile_w,
-            grid.tile_h, f_dim, int(feature_alpha_grad), int(alpha_matmul),
+            n_contrib.data_ptr(), n_tiles, tile_base, n_per_camera,
+            grid.grid_x, grid.grid_y, grid.tile_w, grid.tile_h, f_dim,
+            int(feature_alpha_grad), int(alpha_matmul),
             plan.entries, plan.ring_rows, out.geom.data_ptr(),
             out.feature.data_ptr(), stream)
     _raise_on(lib, "raster_backward", err)

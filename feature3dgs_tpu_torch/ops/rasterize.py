@@ -10,7 +10,10 @@ per-entry gradient rows are summed per Gaussian by ``ops.segment``.
 ``ndc_offset`` (a zero [N,2] tensor that requires grad) yields the NDC-space
 positional gradients densification accumulates. ``rasterize_batch`` renders
 B same-resolution views forward-only through one binning sort and one
-forward-kernel launch over their stacked tile grids.
+forward-kernel launch over their stacked tile grids; under grad,
+``composite_inputs_batch`` and ``composite(..., n_per_camera=N)`` give the
+training step of several cameras one sort, one forward launch and one
+backward launch, and ``tile_base`` composites a slice of the tile grid.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from feature3dgs_tpu_torch.ops.composite import (ALPHA_MIN, CompositeOutput,
                                                  composite_plain_backward)
 from feature3dgs_tpu_torch.ops.cuda_raster import (raster_backward_cuda,
                                                    raster_forward_cuda)
-from feature3dgs_tpu_torch.ops.segment import SegmentPlan
+from feature3dgs_tpu_torch.ops.segment import SegmentPlan, camera_rows
 
 BACKENDS = ("auto", "cuda", "plain")
 
@@ -205,22 +208,27 @@ def _use_kernels(config: RasterConfig, x: torch.Tensor) -> bool:
 
 
 class _Composite(torch.autograd.Function):
-    """Forward and backward compositing of one view. Differentiable inputs:
-    xy, conic, opacity, rgb, depth, feat; differentiable outputs: color,
-    feature, depth and final_T (``color + final_T * bg`` needs its
-    cotangent); n_contrib is not."""
+    """Forward and backward compositing of one view, a slice of its tile
+    grid (``tile_base``) or B views' stacked grids (``n_per_camera``).
+    Differentiable inputs: xy, conic, opacity, rgb, depth, feat;
+    differentiable outputs: color, feature, depth and final_T
+    (``color + final_T * bg`` needs its cotangent); n_contrib is not. The
+    tiles' lists must cover gid_sorted exactly once, in order."""
 
     @staticmethod
     def forward(ctx, xy, conic, opacity, rgb, depth, feat, gid_sorted,
-                tile_starts, tile_counts, grid, config):
+                tile_starts, tile_counts, grid, config, tile_base,
+                n_per_camera):
         args = (xy, conic, opacity, rgb, depth, feat, gid_sorted,
                 tile_starts, tile_counts, grid)
+        where = dict(tile_base=tile_base, n_per_camera=n_per_camera)
         if _use_kernels(config, xy):
-            out = raster_forward_cuda(*args, alpha_matmul=config.alpha_matmul)
+            out = raster_forward_cuda(*args, **where,
+                                      alpha_matmul=config.alpha_matmul)
         else:
-            out = composite_plain(*args, chunk=config.chunk,
+            out = composite_plain(*args, chunk=config.chunk, **where,
                                   alpha_matmul=config.alpha_matmul)
-        ctx.grid, ctx.config = grid, config
+        ctx.grid, ctx.config, ctx.where = grid, config, where
         ctx.save_for_backward(xy, conic, opacity, rgb, depth, feat,
                               gid_sorted, tile_starts, tile_counts,
                               out.final_T, out.n_contrib)
@@ -246,23 +254,35 @@ class _Composite(torch.autograd.Function):
             # the forward's wrapper checked these lists; binning lays them
             # out as the kernel's one-row-per-entry output needs
             rows = raster_backward_cuda(
-                *args, feature_alpha_grad=config.feature_alpha_grad,
+                *args, **ctx.where,
+                feature_alpha_grad=config.feature_alpha_grad,
                 alpha_matmul=config.alpha_matmul, check_lists=False)
         else:
             rows = composite_plain_backward(
-                *args, chunk=config.chunk,
+                *args, chunk=config.chunk, **ctx.where,
                 feature_alpha_grad=config.feature_alpha_grad,
                 alpha_matmul=config.alpha_matmul)
-        plan = SegmentPlan(gid_sorted, xy.shape[0])
-        dg = plan.sum(rows.geom)
+        # feature rows fold by Gaussian id into [N,F]; geometric rows by
+        # (camera, id) = b * N + id into the [B*N] per-camera inputs
+        plan = geom_plan = SegmentPlan(gid_sorted, feat.shape[0])
+        if ctx.where["n_per_camera"]:
+            geom_plan = SegmentPlan(camera_rows(
+                gid_sorted, tile_counts, ctx.where["n_per_camera"],
+                ctx.grid.num_tiles, ctx.where["tile_base"]), xy.shape[0])
+        dg = geom_plan.sum(rows.geom)
         d_feat = plan.sum(rows.feature) if ctx.needs_input_grad[5] else None
         return (dg[:, 0:2], dg[:, 2:5], dg[:, 5], dg[:, 6:9], dg[:, 9],
-                d_feat, None, None, None, None, None)
+                d_feat, None, None, None, None, None, None, None)
 
 
-def composite(args: tuple, config: RasterConfig) -> CompositeOutput:
-    """Differentiable compositing of ``composite_inputs(...).args``."""
-    return CompositeOutput(*_Composite.apply(*args, config))
+def composite(args: tuple, config: RasterConfig, *, tile_base: int = 0,
+              n_per_camera: int = 0) -> CompositeOutput:
+    """Differentiable compositing of ``composite_inputs(...).args``, or of
+    ``composite_inputs_batch(...).args`` with ``n_per_camera`` = N (one
+    forward and one backward launch for the B views). ``tile_base``: tile t
+    of the lists is global tile ``tile_base + t`` (a slice of the grid)."""
+    return CompositeOutput(*_Composite.apply(*args, config, tile_base,
+                                             n_per_camera))
 
 
 def rasterize(
@@ -340,14 +360,17 @@ def _views(cams) -> list:
 def composite_inputs_batch(means3d, opacities, semantic_features, cams, *,
                            scales=None, rotations=None, shs=None, sh_degree=0,
                            colors_precomp=None, scale_modifier=1.0,
-                           active_mask=None,
+                           ndc_offset=None, active_mask=None,
                            config: RasterConfig = RasterConfig()
                            ) -> CompositeInputs:
     """Preprocess B same-resolution views (a stacked CameraView or a list)
     one by one and bin them in one sort. ``pre`` and ``valid`` are stacked
     [B, N, ...]; ``args`` holds the splat arrays flattened to [B*N, ...] and
-    the feature table [N,F] once, for ``raster_forward_cuda`` and
-    ``composite_plain`` with ``n_per_camera`` = N."""
+    the feature table [N,F] once, for ``raster_forward_cuda``,
+    ``composite_plain`` and ``composite`` with ``n_per_camera`` = N.
+    Differentiable: gradients of the flattened arrays reach each view's
+    preprocess. ``ndc_offset`` [N,2] is added to every view's positions, so
+    its gradient sums over the views."""
     views = _views(cams)
     n_cams, n = len(views), means3d.shape[0]
     grid = config.grid(views[0].width, views[0].height)
@@ -355,16 +378,16 @@ def composite_inputs_batch(means3d, opacities, semantic_features, cams, *,
         means3d, opacities, cam, grid, scales=scales, rotations=rotations,
         cov3d_precomp=None, shs=shs, sh_degree=sh_degree,
         colors_precomp=colors_precomp, scale_modifier=scale_modifier,
-        ndc_offset=None, active_mask=active_mask) for cam in views]
+        ndc_offset=ndc_offset, active_mask=active_mask) for cam in views]
     pre = proj_lib.Preprocessed(*(torch.stack(x) for x in zip(
         *(p[0] for p in preps))))
-    rect_min, rect_max, valid = (torch.stack([p[i] for p in preps])
-                                 for i in (2, 3, 4))
+    xy, rect_min, rect_max, valid = (torch.stack([p[i] for p in preps])
+                                     for i in (1, 2, 3, 4))
     bins = binning_lib.bin_gaussians_batch(
         rect_min, rect_max, pre.depth.detach(), valid, grid,
         instance_capacity=config.instance_capacity_or_default)
     flat = lambda x: x.reshape((n_cams * n,) + x.shape[2:]).contiguous()
-    args = (flat(pre.xy), flat(pre.conic), flat(pre.opacity), flat(pre.rgb),
+    args = (flat(xy), flat(pre.conic), flat(pre.opacity), flat(pre.rgb),
             flat(pre.depth), semantic_features.contiguous(), bins.gid_sorted,
             bins.tile_starts, bins.tile_counts, grid)
     return CompositeInputs(pre, valid, bins, grid, args)

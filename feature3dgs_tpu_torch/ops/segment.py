@@ -31,3 +31,16 @@ class SegmentPlan:
         (zeros for a Gaussian with no entry)."""
         return torch.segment_reduce(rows[self.order], "sum",
                                     lengths=self.lengths, unsafe=True)
+
+
+def camera_rows(gid_sorted: torch.Tensor, tile_counts: torch.Tensor,
+                n_per_camera: int, tiles_per_camera: int,
+                tile_base: int = 0) -> torch.Tensor:
+    """[L] int64 row b * N + id of each list entry in B cameras' [B*N]
+    per-camera inputs, where b is the camera of the entry's tile (global
+    tile ``tile_base + t``, ``tiles_per_camera`` a camera). The lists must
+    cover gid_sorted once, in tile order. No host sync."""
+    cams = ((torch.arange(tile_counts.shape[0], device=gid_sorted.device)
+             + tile_base) // tiles_per_camera)
+    return gid_sorted.long() + n_per_camera * torch.repeat_interleave(
+        cams, tile_counts.long(), output_size=gid_sorted.shape[0])

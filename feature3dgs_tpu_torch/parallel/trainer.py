@@ -1,0 +1,123 @@
+"""The host loop over a batch of cameras a step: ``DistributedTrainer``.
+
+Port of ``feature3dgs_tpu/parallel/trainer.py``. It keeps the ``Trainer``'s
+host-side schedule (SH bumps, densify / prune / opacity-reset cadence,
+capacity growth, the ground-truth cache) and swaps its step for
+``parallel.sharded.sharded_train_step``: a step takes ``cameras_per_step``
+cameras (``mesh.shape['data']`` by default), each counted as one reference
+iteration (train.py:84-91), rendered tile-sharded over ``mesh.shape
+['tile']`` ranks, with gradients summed over the mesh.
+
+Densification runs replicated: every rank folds the same summed
+statistics into its own copy of the state and draws the same split noise
+from the same seed, so the ranks' parameters stay equal.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from feature3dgs_tpu_torch.model import gaussians as G
+from feature3dgs_tpu_torch.parallel.sharded import (NOT_PORTED, Mesh,
+                                                    sharded_train_step)
+from feature3dgs_tpu_torch.train.trainer import (Trainer, densify_step,
+                                                 reset_opacity_step)
+
+
+class DistributedTrainer(Trainer):
+    """Mesh-parallel Trainer: ``cameras_per_step`` cameras a step (a
+    multiple of the data axis). The iteration counter advances by the batch
+    so the reference's per-iteration schedule (densify every 100, opacity
+    reset every 3000, the xyz learning-rate decay) keeps its meaning; the
+    batch loss is the mean of the per-camera reference losses. On a 1 x 1
+    mesh it is one card taking B cameras a step."""
+
+    _sync_tag = "dist-trainer"
+
+    def __init__(self, scene, *, mesh: Mesh, cameras_per_step: int | None = None,
+                 shard_gaussians: bool = False, shard_instances: bool = False,
+                 **kwargs):
+        for flag, on in (("shard_gaussians", shard_gaussians),
+                         ("shard_instances", shard_instances)):
+            if on:
+                raise NotImplementedError(NOT_PORTED.format(flag))
+        self.mesh = mesh
+        self.n_data = mesh.shape["data"]
+        self.batch = cameras_per_step or self.n_data
+        if self.batch % self.n_data:
+            raise ValueError(
+                f"cameras_per_step {self.batch} not divisible by the data "
+                f"axis {self.n_data}")
+        super().__init__(scene, **kwargs)
+
+    def _assemble_batch(self, cameras):
+        """(views, ground-truth images, teacher maps) of one step's batch;
+        ``cameras`` is a list of Camera objects, or None to sample."""
+        cams = (list(cameras) if cameras is not None
+                else [self.pick_camera() for _ in range(self.batch)])
+        if len(cams) != self.batch:
+            raise ValueError(f"a step takes {self.batch} cameras, got "
+                             f"{len(cams)}")
+        return ([c.to_view(self.device) for c in cams],
+                [self._device_cache(c, "image") for c in cams],
+                [self._device_cache(c, "feature") for c in cams])
+
+    def step(self, cameras=None, sync: bool = True) -> dict:
+        """One mesh step over a batch of cameras (``batch`` reference
+        iterations); ``sync=False`` reads nothing from the device."""
+        self.flush_maintenance()
+        it0 = self.iteration + 1
+        self.iteration += self.batch
+        for it in range(it0, self.iteration + 1):
+            if it % 1000 == 0:
+                G.one_up_sh_degree(self.ts.gstate, self.max_sh_degree)
+        views, gt_images, gt_features = self._assemble_batch(cameras)
+        # the span's per-iteration schedule is folded into the one update
+        # (group_lrs; train.py:77-81)
+        span = np.arange(it0, it0 + self.batch)
+        metrics = sharded_train_step(
+            self.ts, views, gt_images, gt_features, self.bg, span,
+            mesh=self.mesh, ocfg=self.ocfg, rcfg=self.rcfg,
+            speedup=self.speedup)
+        if sync:
+            host_metrics, ok = self._sync_metrics(metrics, self.iteration,
+                                                  self._sync_tag)
+            if ok:
+                self._pending_maintenance = (self.iteration, metrics)
+            return host_metrics
+        self._pending_maintenance = (self.iteration, metrics)
+        return metrics
+
+    def _dispatch_maintenance(self, it: int, metrics) -> None:
+        """Densify / prune / opacity reset after the batch that ended at
+        ``it``: each fires when its interval boundary falls inside the
+        batch's span (the reference checks ``it % interval == 0`` per
+        camera-iteration)."""
+        o = self.ocfg
+        first = it - self.batch + 1
+        hits = lambda interval: any(i % interval == 0
+                                    for i in range(first, it + 1))
+        if first < o.densify_until_iter:
+            if it > o.densify_from_iter and hits(o.densification_interval):
+                noise, extent = self._densify_inputs()
+                self.ts, report = densify_step(
+                    self.ts, noise, extent, ocfg=o,
+                    use_screen_size_prune=it > o.opacity_reset_interval)
+                self._pending_reports.append((it, report, metrics))
+            if hits(o.opacity_reset_interval) or (
+                    self.white_background
+                    and first <= o.densify_from_iter <= it):
+                self.ts = reset_opacity_step(self.ts)
+
+    def train(self, iterations: int | None = None, log_every: int = 50,
+              callback=None) -> list:
+        n = iterations or self.ocfg.iterations
+        history = []
+        while self.iteration < n:
+            nxt = self.iteration + self.batch
+            log = nxt >= n or (nxt // log_every) > (self.iteration // log_every)
+            m = self.step(sync=log)
+            if log:
+                history.append({"iteration": self.iteration, **m})
+                if callback:
+                    callback(self.iteration, m)
+        return history

@@ -6,7 +6,9 @@ Gaussian-window SSIM with zero padding, ``rgb_loss`` and the
 align_corners=True bilinear resize that matches rendered feature maps to
 the teacher map. Images are HWC, as in the JAX package. No Pallas kernel is
 involved: the blur is a depthwise ``F.conv2d`` (full f32: the package turns
-cuDNN's TF32 off) and the resize is ``F.interpolate``.
+cuDNN's TF32 off) and the resize is ``F.interpolate``;
+``resize_bilinear_from_tile_rows``, the tile-sharded step's partial resize,
+applies the two-tap operator by gathers.
 """
 from __future__ import annotations
 
@@ -104,3 +106,74 @@ def resize_bilinear_from_tiles(tiles: torch.Tensor, grid, out_h: int,
     the feature map) and resizes it."""
     return resize_bilinear_align_corners(tiles_to_image(tiles, grid), out_h,
                                          out_w)
+
+
+@functools.lru_cache(maxsize=32)
+def _interp_taps(n_in: int, n_out: int) -> tuple:
+    """The align_corners=True operator of one axis as two taps an output:
+    (lo, hi, w_lo, w_hi) numpy arrays, the weights rounded as the JAX
+    package's ``_interp_matrix`` rounds them (positions in float64, the
+    fraction in float32)."""
+    if n_out == 1:
+        zero = np.zeros(1, np.int64)
+        return zero, zero, np.ones(1, np.float32), np.zeros(1, np.float32)
+    ys = np.arange(n_out, dtype=np.float64) * ((n_in - 1) / (n_out - 1))
+    lo = np.clip(np.floor(ys).astype(np.int64), 0, n_in - 1)
+    hi = np.minimum(lo + 1, n_in - 1)
+    w = (ys - lo).astype(np.float32)
+    return lo, hi, np.float32(1.0) - w, w
+
+
+@functools.lru_cache(maxsize=64)
+def _taps_in(n_in: int, n_out: int, o0: int, o1: int, first: int, end: int,
+             device):
+    """Index and weight tensors, on ``device``, of output rows [o0, o1) of
+    the operator: the taps that read source rows [first, end), the others
+    with weight 0 (and a clamped index). Cached: a step uploads nothing."""
+    lo, hi, w_lo, w_hi = (x[o0:o1] for x in _interp_taps(n_in, n_out))
+    n = max(end - first, 1)
+    out = []
+    for idx, w in ((lo, w_lo), (hi, w_hi)):
+        inside = (idx >= first) & (idx < end)
+        out.append(torch.from_numpy(np.clip(idx - first, 0, n - 1)).to(device))
+        out.append(torch.from_numpy(np.where(inside, w, np.float32(0))).to(
+            device))
+    return out
+
+
+def resize_bilinear_from_tile_rows(tiles_local: torch.Tensor, grid,
+                                   out_h: int, out_w: int, row0: int,
+                                   rows_loc: int, gy_pad: int) -> torch.Tensor:
+    """Partial align_corners resize from a block of tile rows (port of
+    ``feature3dgs_tpu/train/losses.py:resize_bilinear_from_tile_rows``).
+
+    ``tiles_local`` [rows_loc * grid_x, P, C] holds tile rows
+    [row0, row0 + rows_loc) of a tile grid padded to ``gy_pad`` rows (pad
+    rows carry zero weight). Returns this block's additive share of the
+    [out_h, out_w, C] map: summed over the blocks of a tile grid (the tile
+    axis of a mesh), it is ``resize_bilinear_from_tiles`` of the whole grid
+    up to float rounding. Only the output rows that read a pixel row of the
+    block are computed, so the work shards with the tiles."""
+    gx, th, tw = grid.grid_x, grid.tile_h, grid.tile_w
+    c = tiles_local.shape[-1]
+    if not 0 <= row0 <= row0 + rows_loc <= gy_pad:
+        raise ValueError(f"tile rows {row0}..{row0 + rows_loc} outside a "
+                         f"grid of {gy_pad}")
+    y0 = row0 * th
+    y1 = max(min((row0 + rows_loc) * th, grid.height), y0)
+    block = tiles_local.reshape(rows_loc, gx, th, tw, c).permute(
+        0, 2, 1, 3, 4).reshape(rows_loc * th, gx * tw, c)[: y1 - y0,
+                                                        : grid.width]
+    taps_y = _interp_taps(grid.height, out_h)
+    lo, hi = taps_y[0], taps_y[1]
+    reads = np.nonzero(((lo >= y0) & (lo < y1)) | ((hi >= y0) & (hi < y1)))[0]
+    o0, o1 = (int(reads[0]), int(reads[-1]) + 1) if reads.size else (0, 0)
+    i_lo, w_lo, i_hi, w_hi = _taps_in(grid.height, out_h, o0, o1, y0, y1,
+                                      tiles_local.device)
+    rows = (block.index_select(0, i_lo) * w_lo[:, None, None]
+            + block.index_select(0, i_hi) * w_hi[:, None, None])
+    x_lo, xw_lo, x_hi, xw_hi = _taps_in(grid.width, out_w, 0, out_w, 0,
+                                        grid.width, tiles_local.device)
+    out = (rows.index_select(1, x_lo) * xw_lo[None, :, None]
+           + rows.index_select(1, x_hi) * xw_hi[None, :, None])
+    return F.pad(out, (0, 0, 0, 0, o0, out_h - o1))

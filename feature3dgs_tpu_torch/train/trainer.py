@@ -170,7 +170,12 @@ def _host_values(tensors: list) -> list:
 
 class Trainer:
     """The host loop (the original train.py ``training()``). Runs on
-    ``default_device(device)``."""
+    ``default_device(device)``. ``parallel.trainer.DistributedTrainer``
+    subclasses it: ``step``, ``_dispatch_maintenance`` and ``train`` are
+    what a batch of cameras a step changes, ``_sync_tag`` names the loop in
+    its messages."""
+
+    _sync_tag = "trainer"
 
     def __init__(self, scene: "SceneData", *, ocfg: OptimizationConfig = None,
                  rcfg: RasterConfig = None, max_sh_degree: int = 3,
@@ -294,7 +299,8 @@ class Trainer:
         # the host only escalates at sync points, where repeated
         # non-finite losses mean training is stuck.
         if sync:
-            host_metrics, ok = self._sync_metrics(metrics, it, "trainer")
+            host_metrics, ok = self._sync_metrics(metrics, it,
+                                                  self._sync_tag)
             if ok:
                 self._pending_maintenance = (it, metrics)
             return host_metrics

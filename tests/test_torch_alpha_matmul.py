@@ -26,7 +26,9 @@ from feature3dgs_tpu_torch.ops import composite as pcomp
 from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig, composite as
                                                  pcomposite, rasterize)
 
-from tests.torch_helpers import cameras, scene, t
+from tests.torch_helpers import cameras, scene, t, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 W, H = 48, 32
 

@@ -31,7 +31,9 @@ from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig, composite as
 from feature3dgs_tpu_torch.ops.segment import SegmentPlan
 from feature3dgs_tpu_torch.render import renderer as prenderer
 
-from tests.torch_helpers import CPU, cameras, scene, t
+from tests.torch_helpers import CPU, cameras, scene, t, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 5e-6
 W, H = 48, 32

@@ -14,7 +14,9 @@ from feature3dgs_tpu.ops import binning as jbin
 from feature3dgs_tpu.ops.rasterize import rect_radius
 from feature3dgs_tpu_torch.ops import binning as pbin
 
-from tests.torch_helpers import cameras, scene, t
+from tests.torch_helpers import cameras, scene, t, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _rects(width, height, tile_w, tile_h, n=300, seed=0):

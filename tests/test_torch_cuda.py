@@ -640,3 +640,142 @@ def test_render_batch_on_the_card_equals_render(dev):
         renderer.render_batch(
             params, state, views, config=cfg,
             override_opacity=torch.ones(n, device=dev, requires_grad=True))
+
+
+def _views_on(dev, f_dim, tile_w, n_cams, width=64, height=64, seed=3):
+    """n_cams cameras on one scene: each view's inputs alone, and all of
+    them binned in one sort (``composite_inputs_batch``)."""
+    from feature3dgs_tpu_torch.convert import camera_from_numpy
+    from feature3dgs_tpu_torch.core import transforms
+    from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
+                                                     composite_inputs,
+                                                     composite_inputs_batch)
+    rng = np.random.RandomState(seed)
+    n = 300
+    q = rng.randn(n, 4)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    g = {"means3d": rng.uniform(-1.5, 1.5, (n, 3)),
+         "scales": np.exp(rng.uniform(-3.5, -1.5, (n, 3))), "rotations": q,
+         "opacities": np.minimum(rng.uniform(0.2, 0.95, n) * 3.0, 0.999),
+         "shs": rng.randn(n, 9, 3) * 0.3, "feat": rng.randn(n, f_dim)}
+    g = {k: torch.tensor(v.astype(np.float32), device=dev) for k, v in g.items()}
+    cams = []
+    for i in range(n_cams):
+        view = transforms.world_to_view(np.eye(3),
+                                        np.array([0.1 * i, 0.0, 4.0 + 0.3 * i]))
+        proj = transforms.projection_matrix(0.01, 100.0, 1.0, 0.8) @ view
+        cams.append(camera_from_numpy(
+            view, proj, transforms.camera_center_from_view(view).astype(
+                np.float32), math.tan(0.5), math.tan(0.4), width, height, dev))
+    kw = dict(scales=g["scales"], rotations=g["rotations"], shs=g["shs"],
+              sh_degree=2, config=RasterConfig(tile_w=tile_w, tile_h=16))
+    singles = [composite_inputs(g["means3d"], g["opacities"], g["feat"], c,
+                                **kw) for c in cams]
+    return singles, composite_inputs_batch(g["means3d"], g["opacities"],
+                                           g["feat"], cams, **kw)
+
+
+def _rows_match_plain(got, ref, tol=5e-6):
+    for name, a, b in GROUPS:
+        if float(ref.geom[:, a:b].abs().max()) > 0:
+            assert _norm_err(got.geom[:, a:b], ref.geom[:, a:b]) <= tol, name
+    if got.feature.numel() and float(ref.feature.abs().max()) > 0:
+        assert _norm_err(got.feature, ref.feature) <= tol
+
+
+@pytest.mark.parametrize("f_dim,tile_w", [(4, 16), (128, 32), (128, 16)])
+def test_backward_kernel_tile_slices_and_batches(dev, f_dim, tile_w):
+    """``tile_base``: the backward over 2 and 4 slices of tile rows (each
+    with its own sub-range of gid_sorted and rebased starts) writes the
+    full launch's rows bit for bit; ``n_per_camera``: one launch over 3
+    cameras writes each camera's own launch's rows bit for bit. Both within
+    5e-6 of the plain version (max-normalised)."""
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.binning import tile_slices
+    from feature3dgs_tpu_torch.ops.composite import composite_plain_backward
+    singles, batch = _views_on(dev, f_dim, tile_w, 3)
+    ci, grid = singles[0], singles[0].grid
+    fwd = cuda_raster.raster_forward_cuda(*ci.args)
+    gen = torch.Generator(device="cpu").manual_seed(f_dim)
+    state = (*[torch.randn(x.shape, generator=gen).to(dev)
+               for x in (fwd.color, fwd.feature, fwd.depth, fwd.final_T)],
+             fwd.final_T, fwd.n_contrib)
+    full = cuda_raster.raster_backward_cuda(*ci.args, *state)
+    for n_tile in (2, 4):
+        rows_loc = -(-grid.grid_y // n_tile)
+        ranges = [(min(r * rows_loc, grid.grid_y) * grid.grid_x,
+                   min((r + 1) * rows_loc, grid.grid_y) * grid.grid_x)
+                  for r in range(n_tile)]
+        offset = 0
+        for (t0, t1), lists in zip(ranges, tile_slices(*ci.args[6:9],
+                                                       ranges)):
+            args = (*ci.args[:6], *lists, grid, *(x[t0:t1] for x in state))
+            before = cuda_raster.BACKWARD_LAUNCHES
+            rows = cuda_raster.raster_backward_cuda(*args, tile_base=t0)
+            assert cuda_raster.BACKWARD_LAUNCHES == before + (t1 > t0)
+            k = lists[0].shape[0]
+            assert torch.equal(rows.geom, full.geom[offset:offset + k])
+            assert torch.equal(rows.feature, full.feature[offset:offset + k])
+            _rows_match_plain(rows, composite_plain_backward(
+                *args, chunk=32, tile_base=t0))
+            offset += k
+        assert offset == ci.bins.gid_sorted.shape[0]
+
+    n = ci.args[0].shape[0]
+    bfwd = cuda_raster.raster_forward_cuda(*batch.args, n_per_camera=n)
+    t_n = grid.num_tiles
+    bstate = (*[torch.cat([torch.randn((t_n,) + x.shape[1:],
+                                       generator=gen).to(dev)
+                           for _ in singles])
+                for x in (fwd.color, fwd.feature, fwd.depth, fwd.final_T)],
+              bfwd.final_T, bfwd.n_contrib)
+    before = cuda_raster.BACKWARD_LAUNCHES
+    brows = cuda_raster.raster_backward_cuda(*batch.args, *bstate,
+                                             n_per_camera=n)
+    assert cuda_raster.BACKWARD_LAUNCHES == before + 1
+    _rows_match_plain(brows, composite_plain_backward(
+        *batch.args, *bstate, chunk=32, n_per_camera=n))
+    offset = 0
+    for b, one in enumerate(singles):
+        ofwd = cuda_raster.raster_forward_cuda(*one.args)
+        assert torch.equal(ofwd.n_contrib, bfwd.n_contrib[b * t_n:(b + 1) * t_n])
+        rows = cuda_raster.raster_backward_cuda(
+            *one.args, *(x[b * t_n:(b + 1) * t_n] for x in bstate))
+        k = one.bins.gid_sorted.shape[0]
+        assert torch.equal(brows.geom[offset:offset + k], rows.geom)
+        assert torch.equal(brows.feature[offset:offset + k], rows.feature)
+        offset += k
+
+
+def test_batched_train_step_launches_once_each_way(dev):
+    """A DistributedTrainer step of 4 cameras on a 1 x 1 mesh makes one
+    forward and one backward launch, and its loss is the mean of the 4
+    cameras' single-step losses from the same state (2e-5 relative)."""
+    import copy
+
+    from feature3dgs_tpu_torch.data.synthetic import synthetic_scene
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
+    from feature3dgs_tpu_torch.parallel import DistributedTrainer, make_mesh
+    from feature3dgs_tpu_torch.train.trainer import (OptimizationConfig,
+                                                     train_step)
+    scene = synthetic_scene(n_cams=4, w=96, h=64, n_pts=400, f_dim=8, seed=0)
+    rcfg = RasterConfig(instance_capacity=1 << 16)
+    tr = DistributedTrainer(scene, mesh=make_mesh((1, 1)), cameras_per_step=4,
+                            ocfg=OptimizationConfig(iterations=8), rcfg=rcfg,
+                            max_sh_degree=2, device=dev)
+    start = copy.deepcopy(tr.ts)
+    cams = scene.train_cameras
+    cuda_raster.FORWARD_LAUNCHES = cuda_raster.BACKWARD_LAUNCHES = 0
+    m = tr.step(cameras=cams)
+    assert (cuda_raster.FORWARD_LAUNCHES,
+            cuda_raster.BACKWARD_LAUNCHES) == (1, 1)
+    losses = []
+    for c in cams:
+        ts = copy.deepcopy(start)
+        losses.append(float(train_step(
+            ts, c.to_view(dev), tr._device_cache(c, "image"),
+            tr._device_cache(c, "feature"), tr.bg, 1, ocfg=tr.ocfg,
+            rcfg=rcfg, speedup=False)["loss"]))
+    assert m["finite"] == 1.0
+    assert abs(m["loss"] - np.mean(losses)) <= 2e-5 * abs(np.mean(losses))

@@ -23,7 +23,9 @@ from feature3dgs_tpu_torch.model import gaussians as PG
 from feature3dgs_tpu_torch.model import optim as poptim
 from feature3dgs_tpu_torch.ops import knn as pknn
 
-from tests.torch_helpers import t
+from tests.torch_helpers import t, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FIELDS = PG.GaussianParams.FIELDS
 EXTENT, PERCENT_DENSE, MAX_GRAD, MIN_OPACITY = 4.0, 0.01, 0.0002, 0.005

@@ -154,11 +154,22 @@ def _call_entry_point(name, tmp_path, **kw):
         # the device is resolved before the file is opened
         from feature3dgs_tpu_torch.train.checkpoints import load_checkpoint
         return load_checkpoint(str(tmp_path / "missing.ckpt"), **kw)
-    if name == "Trainer":
+    if name in ("Trainer", "DistributedTrainer"):
         from feature3dgs_tpu_torch.data.synthetic import synthetic_scene
+        from feature3dgs_tpu_torch.parallel import (DistributedTrainer,
+                                                    make_mesh)
         from feature3dgs_tpu_torch.train.trainer import Trainer
-        return Trainer(synthetic_scene(n_cams=1, w=16, h=16, n_pts=8,
-                                       f_dim=4), **kw)
+        sc = synthetic_scene(n_cams=2, w=16, h=16, n_pts=8, f_dim=4)
+        if name == "Trainer":
+            return Trainer(sc, **kw)
+        return DistributedTrainer(sc, mesh=make_mesh((1, 1)),
+                                  cameras_per_step=2, **kw)
+    if name == "parallel.initialize":
+        # a single process (no WORLD_SIZE): the device is resolved, no group
+        from feature3dgs_tpu_torch.parallel.distributed import initialize
+        assert "WORLD_SIZE" not in os.environ
+        assert initialize(**kw) is False
+        return None
     if name == "cli.train.main":
         from feature3dgs_tpu_torch.cli import train
         # the device is resolved before the scene is read
@@ -193,6 +204,7 @@ ENTRY_POINTS = ["load_gaussians_ply", "load_decoder_checkpoint",
                 "gaussians_from_numpy", "decoder_from_numpy",
                 "camera_from_numpy", "train_state_from_numpy", "init_adam",
                 "TrainState.create", "load_checkpoint", "Trainer",
+                "DistributedTrainer", "parallel.initialize",
                 "load_lpips_weights", "cli.train.main", "cli.render.main",
                 "cli.segmentation.main", "cli.segmentation_metric.main",
                 "cli.metrics.main", "cli.full_eval.main"]

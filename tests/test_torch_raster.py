@@ -20,7 +20,9 @@ from feature3dgs_tpu_torch.ops import cuda_raster
 from feature3dgs_tpu_torch.ops.composite import composite_plain
 from feature3dgs_tpu_torch.ops.rasterize import RasterConfig, rasterize
 
-from tests.torch_helpers import cameras, scene, t
+from tests.torch_helpers import cameras, scene, t, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _check_forward(got, ref):

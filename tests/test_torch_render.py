@@ -29,7 +29,9 @@ from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
 from feature3dgs_tpu_torch.render import renderer as prenderer
 from feature3dgs_tpu_torch.train import checkpoints as pckpt
 
-from tests.torch_helpers import CPU, cameras, t
+from tests.torch_helpers import CPU, cameras, t, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _fields(n=240, f_dim=16, sh_degree=3, seed=0) -> dict:

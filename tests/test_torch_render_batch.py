@@ -28,7 +28,9 @@ from feature3dgs_tpu_torch.ops import binning as pbin
 from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig, rasterize,
                                                  rasterize_batch)
 
-from tests.torch_helpers import cameras, scene, t
+from tests.torch_helpers import cameras, scene, t, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 W, H = 64, 48
 SH = 2

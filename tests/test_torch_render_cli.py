@@ -18,6 +18,9 @@ import pytest
 import torch
 
 from tests.test_torch_render import F_DIM, ITER, N_FRAMES, _build_model
+from tests.torch_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs")
 N_TEXT = 5

@@ -18,7 +18,9 @@ import torch
 from feature3dgs_tpu.data.cameras import Camera as JCamera
 from feature3dgs_tpu_torch.data.cameras import Camera as PCamera
 
-from tests.torch_helpers import t
+from tests.torch_helpers import t, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs")
 

@@ -38,7 +38,9 @@ from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
 from feature3dgs_tpu_torch.train import losses as plosses
 from feature3dgs_tpu_torch.train import trainer as ptrainer
 
-from tests.torch_helpers import CPU, cameras, t
+from tests.torch_helpers import CPU, cameras, t, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FIELDS = PG.GaussianParams.FIELDS
 

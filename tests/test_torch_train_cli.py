@@ -1,10 +1,15 @@
 """The port's train CLI on the CPU: ``feature3dgs_tpu_torch.cli.train.main``
 in process on a tiny Blender-style scene written to ``tmp_path``: the
-artifact tree, the refused multi-device flags, resuming from a checkpoint,
-the profile, and the render CLI on the result.
+artifact tree, B cameras a step, the mesh's world-size check, the refused
+multi-device flags, resuming from a checkpoint, the profile, the render
+CLI on the result, and every flag of scripts/train.py and scripts/render.py
+parsing in the port's CLIs.
 """
+import argparse
+import importlib.util
 import json
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -15,6 +20,10 @@ from feature3dgs_tpu_torch.cli import train as train_cli
 from feature3dgs_tpu_torch.data.dataset import load_scene
 from feature3dgs_tpu_torch.data.synthetic import write_blender_scene
 from feature3dgs_tpu_torch.train import checkpoints as ckpt
+
+from tests.torch_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL = ["--device", "cpu", "--tile_size", "16", "--chunk", "16",
          "--densify_from_iter", "3", "--densification_interval", "4",
@@ -128,13 +137,102 @@ def test_train_cli_speedup_alpha_matmul_and_profile(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "1x4"], ["--cameras_per_step", "2"], ["--distributed"],
-    ["--shard_gaussians"], ["--shard_instances"]])
+    ["--distributed"], ["--shard_gaussians"], ["--shard_instances"]])
 def test_train_cli_refuses_multi_device_flags(flags, scene_dir, tmp_path):
     with pytest.raises(SystemExit, match="not ported.*" + flags[0]):
         train_cli.main(["-s", scene_dir, "-m", str(tmp_path / "o"),
                         "--device", "cpu", *flags])
     assert not os.path.exists(tmp_path / "o")
+
+
+@pytest.mark.parametrize("case", ["cameras_per_step", "mesh_1x4"])
+def test_train_cli_mesh_flags(case, scene_dir, tmp_path, capsys):
+    """``--cameras_per_step 2`` trains two cameras a step (a 1 x 1 mesh)
+    and writes the single-camera run's tree, saves and checkpoints at the
+    steps whose span holds their iteration; ``--mesh 1x4`` in one process
+    exits naming the world size it needs and writes nothing."""
+    out = str(tmp_path / "o")
+    if case == "mesh_1x4":
+        with pytest.raises(SystemExit, match="needs a world size of 4"):
+            train_cli.main(["-s", scene_dir, "-m", out, "--device", "cpu",
+                            "--mesh", "1x4"])
+        assert not os.path.exists(out)
+        return
+    rc = train_cli.main([
+        "-s", scene_dir, "-m", out, "-f", "lseg", "--iterations", "12",
+        "--save_iterations", "7", "--checkpoint_iterations", "8",
+        "--test_iterations", "12", "--sync_every", "4",
+        "--cameras_per_step", "2", *SMALL])
+    assert rc == 0
+    text = capsys.readouterr().out
+    assert "Mesh training: data=1 x tile=1 over 1 processes, 2 cameras/step" \
+        in text
+    assert "[ITER 12] Evaluating train" in text and "[12/12]" in text
+    assert "[6/12]" not in text and "[8/12]" in text
+    for rel in ("cfg_args", "cameras.json", "train_log.jsonl", "chkpnt8.ckpt",
+                "chkpnt8.meta.json",
+                "point_cloud/iteration_8/point_cloud.ply",
+                "point_cloud/iteration_12/point_cloud.ply"):
+        assert os.path.exists(os.path.join(out, rel)), rel
+    assert ckpt.load_cfg_args(out)["cameras_per_step"] == 2
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        last = json.loads(f.read().splitlines()[-1])
+    assert last["iteration"] == 12 and np.isfinite(last["loss"])
+    assert last["num_active"] > 300                     # densified
+    ts, it = ckpt.load_checkpoint(os.path.join(out, "chkpnt8.ckpt"),
+                                  device="cpu")
+    assert it == 8 and int(ts.adam.step) == 4           # one update a step
+
+
+class _Captured(Exception):
+    pass
+
+
+def _parser_of(main) -> argparse.ArgumentParser:
+    """The parser ``main`` builds, caught at its parse_args call."""
+    seen = {}
+
+    def grab(self, args=None, namespace=None):
+        seen["parser"] = self
+        raise _Captured
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", grab):
+        with pytest.raises(_Captured):
+            main([])
+    return seen["parser"]
+
+
+def _sample(action, option: str) -> list:
+    if action.nargs == 0:
+        return [option]
+    if action.choices:
+        return [option, str(list(action.choices)[-1])]
+    value = {int: "3", float: "0.5"}.get(action.type, "x")
+    return [option, value]
+
+
+@pytest.mark.parametrize("script", ["train", "render"])
+def test_every_script_flag_parses_in_the_port(script):
+    """Each option string of scripts/<script>.py's parser (collected by
+    calling its main with parse_args caught) parses in the port's CLI of
+    the same name."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        f"_script_{script}", os.path.join(root, "scripts", f"{script}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    theirs = _parser_of(module.main)
+    port_main = train_cli.main if script == "train" else render_cli.main
+    ours = _parser_of(port_main)
+    options = [(a, o) for a in theirs._actions for o in a.option_strings
+               if o not in ("-h", "--help")]
+    assert len(options) > 30
+    for action, option in options:
+        argv = _sample(action, option)
+        try:
+            ours.parse_args(argv)
+        except SystemExit:
+            pytest.fail(f"port {script} CLI refuses {argv}")
 
 
 def test_optimization_flags_round_trip():

@@ -43,8 +43,10 @@ from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
 from feature3dgs_tpu_torch.train import checkpoints as pckpt
 from feature3dgs_tpu_torch.train import trainer as ptrainer
 
-from tests.torch_helpers import t
+from tests.torch_helpers import t, one_torch_thread  # noqa: F401
 from tests.utils import make_camera, random_gaussians
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 W, H, F_DIM = 48, 32, 4
 JCFG = JRasterConfig(tile_w=16, tile_h=16, chunk=16,

@@ -3,6 +3,7 @@ or camera, handed to both the JAX package and the port."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from feature3dgs_tpu_torch.convert import camera_from_numpy
@@ -37,3 +38,16 @@ def scene(n=200, f_dim=4, seed=0, boost=None, max_sh_degree=2):
         g["opacities"] = np.minimum(g["opacities"] * boost, 0.999
                                     ).astype(np.float32)
     return g
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's torch work. The suite runs six
+    workers on a few cores: torch's multi-threaded small ops then wait on
+    each other's descheduled threads and a test that takes seconds alone
+    takes minutes. Use with ``pytestmark = pytest.mark.usefixtures(
+    "one_torch_thread")`` and import the fixture into the module."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)

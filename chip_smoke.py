@@ -109,6 +109,21 @@ Phases, one line each; any failure raises and exits non-zero:
                from the same state (2e-5 relative), one forward and one
                backward launch a step, B = 4 step ms against 4 single-camera
                Trainer steps, blocking host calls and peak memory of each.
+  train_shard  the row-sharded modes of parallel.sharded_train_step on a
+               1 x 1 mesh, from one state (train_batch's Gaussians, cameras,
+               images and teachers): one step of the 4 cameras replicated,
+               one with shard_gaussians and one with shard_instances too
+               (the instance exchange: one forward and one backward launch
+               a camera), each against the replicated one at the CPU
+               tests' bars (loss 2e-5 relative, parameters 5e-5 where the
+               gradient is above 1e-12 and Adam's first moments 1e-5
+               max-normalised, xyz_gradient_accum 2e-5, denom exact,
+               max_radii2d 1e-4 and exact for the exchange,
+               num_instances equal); step ms of
+               each mode, blocking host calls a step, peak memory, the
+               exchange's instances against its slots; then
+               DistributedTrainer(shard_gaussians=True) for 10 steps of 4
+               cameras over one densify round.
   train_cli    python -m feature3dgs_tpu_torch.cli.train as a subprocess on
                a small Blender-style scene (4 train and 2 test frames of
                128x128, 16-d teacher maps, 2000 points), 40 iterations with
@@ -990,6 +1005,24 @@ def phase_kernel_bwd_slice(dev, params, state, gt_image, gt_feature):
             for mm in (False, True)}
 
 
+def blocking_calls(step) -> int:
+    """The host calls that block on the card while step() runs (CUDA's
+    sync debug mode)."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
 def phase_train_batch(dev, scene, at_batch4, profile_dir):
     """B = 4 cameras a step through DistributedTrainer on a 1 x 1 mesh:
     bench.py's Gaussians (the training scene) with the train_loop scene's
@@ -1003,7 +1036,6 @@ def phase_train_batch(dev, scene, at_batch4, profile_dir):
     the device-busy ms of one B = 4 step and of 4 single steps, and the
     idle share of each against its median time."""
     import copy
-    import warnings
 
     import torch
     from feature3dgs_tpu_torch.ops import cuda_raster
@@ -1034,18 +1066,6 @@ def phase_train_batch(dev, scene, at_batch4, profile_dir):
         torch.cuda.synchronize()
         return ((time.perf_counter() - t0) * 1e3,
                 tuple(a - b for a, b in zip(launches(), before)), m)
-
-    def blocking_calls(step):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                step()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return sum("synchronizing CUDA operation" in str(w.message)
-                   for w in caught)
 
     for name in ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES",
                  "FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES"):
@@ -1119,6 +1139,177 @@ def phase_train_batch(dev, scene, at_batch4, profile_dir):
                               if at_batch4 else "not run"),
         batch4_bwd_bound_ms=(f"{at_batch4[False]['batch4_bound_ms']:.4f}"
                              if at_batch4 else "not run"),
+        forward_launches=counts[0], backward_launches=counts[1])
+    return counts
+
+
+def phase_train_shard(dev, scene):
+    """The row-sharded modes on a 1 x 1 mesh, from one state: bench.py's
+    Gaussians with train_batch's orbit cameras 0-3, their images and fp16
+    teachers, one ``sharded_train_step`` of the 4 cameras replicated, one
+    with ``shard_gaussians`` (the rows gathered for the render, gradients
+    back to the shard) and one with ``shard_instances`` as well (the
+    instance exchange: per camera one expansion, one routing buffer, one
+    receiver sort and one forward and one backward launch). Each against
+    the replicated step at the CPU tests' bars: loss 2e-5 relative,
+    parameters 5e-5, xyz_gradient_accum 2e-5, denom exact, max_radii2d 1e-4
+    (exact for the exchange), num_instances equal. At 100K Gaussians some
+    gradients cancel to below 1e-12, where a first Adam step is
+    lr * g / (|g| + 1e-15) and the order of a sum decides it: parameters
+    are held at 5e-5 where the gradient is above that, the elements below
+    it are counted, and Adam's first moments (the gradients) are held at
+    1e-5 max-normalised everywhere. Then 3 timed steps of
+    each mode after a warm-up (host clock around the step and a
+    synchronize), the host calls a step blocks on, peak memory, and the
+    exchange's instances against its slots. Then
+    ``DistributedTrainer(shard_gaussians=True)`` from the scene's own points
+    for 10 steps of 4 cameras over one densify round. Returns the forward
+    and backward launches of the phase."""
+    import copy
+
+    import torch
+    from feature3dgs_tpu_torch.model.gaussians import GaussianParams
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
+    from feature3dgs_tpu_torch.parallel import (DistributedTrainer, make_mesh,
+                                                sharded_train_step)
+    from feature3dgs_tpu_torch.parallel.sharded import (exchange_capacities,
+                                                        shard_state)
+    from feature3dgs_tpu_torch.train.trainer import (OptimizationConfig,
+                                                     TrainState)
+    for name in ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES",
+                 "FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES"):
+        setattr(cuda_raster, name, 0)
+    rcfg = RasterConfig(instance_capacity=1 << 20)
+    ocfg = OptimizationConfig()
+    mesh = make_mesh((1, 1))
+    cams = scene.train_cameras[:BATCH]
+    views = [c.to_view(dev) for c in cams]
+    gt_images = [torch.from_numpy(np.asarray(c.image, np.float32)).to(dev)
+                 for c in cams]
+    gt_features = [torch.from_numpy(np.asarray(c.semantic_feature)).to(dev)
+                   for c in cams]
+    params, gstate, _, _ = bench_scene(dev)
+    gstate.spatial_lr_scale = float(scene.nerf_norm["radius"])
+    start = TrainState.create(params, gstate, device=dev)
+    del params, gstate
+    bg, span = torch.zeros(3, device=dev), np.arange(1, BATCH + 1)
+    modes = {"replicated": {}, "shard_gaussians": dict(shard_gaussians=True),
+             "shard_instances": dict(shard_gaussians=True,
+                                     shard_instances=True)}
+    launches = lambda: (cuda_raster.FORWARD_LAUNCHES,
+                        cuda_raster.BACKWARD_LAUNCHES)
+    stat = lambda xs: (f"{statistics.median(xs):.3f}/{min(xs):.3f}/"
+                       f"{max(xs):.3f}")
+    STATS = ("xyz_gradient_accum", "denom", "max_radii2d")
+    after, report = {}, {}
+    for mode, flags in modes.items():
+        step = lambda ts, flags=flags: sharded_train_step(
+            ts, views, gt_images, gt_features, bg, span, mesh=mesh,
+            ocfg=ocfg, rcfg=rcfg, **flags)
+        ts = copy.deepcopy(start)
+        ts = shard_state(ts, mesh) if flags else ts
+        before = launches()
+        m = {k: float(v) for k, v in step(ts).items()}
+        got = tuple(a - b for a, b in zip(launches(), before))
+        want = (BATCH, BATCH) if flags.get("shard_instances") else (1, 1)
+        if got != want or not m["finite"]:
+            raise AssertionError(f"train_shard {mode}: launches {got}, "
+                                 f"expected {want}; metrics {m}")
+        # what the comparison reads, kept on the host so that it does not
+        # count in the next modes' peak memory
+        host = lambda x: x.to("cpu", copy=True)
+        after[mode] = ({f"{g}.{k}": host(getattr(getattr(ts, g), k))
+                        for g, keys in (("params", GaussianParams.FIELDS),
+                                        ("gstate", STATS))
+                        for k in keys}
+                       | {f"mu.{k}": host(getattr(ts.adam.mu, k))
+                          for k in GaussianParams.FIELDS}, m)
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(ts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        report[mode] = dict(step_ms=stat(ms[1:]),
+                            peak=torch.cuda.max_memory_allocated(),
+                            syncs=blocking_calls(lambda: step(ts)))
+        del ts
+    del start
+    ref, rm = after["replicated"]
+    errs = {}
+    for mode in ("shard_gaussians", "shard_instances"):
+        ts, m = after[mode]
+        rel = abs(m["loss"] - rm["loss"]) / abs(rm["loss"])
+        # a first Adam step moves a parameter by lr * g / (|g| + 1e-15):
+        # where the replicated gradient is below 1e-12 (a sum that cancels)
+        # its rounding decides the step, so those elements are counted
+        # apart; the first moments hold the gradients themselves
+        d_par, d_mu, edge_off = 0.0, 0.0, 0
+        for k in GaussianParams.FIELDS:
+            diff = (ts[f"params.{k}"] - ref[f"params.{k}"]).abs()
+            mu_ref = ref[f"mu.{k}"]
+            edge = mu_ref.abs() < 0.1 * 1e-12
+            d_par = max(d_par, float(torch.where(
+                edge, torch.zeros_like(diff), diff).max()))
+            edge_off += int((edge & (diff > 5e-5)).sum())
+            d_mu = max(d_mu, float((ts[f"mu.{k}"] - mu_ref).abs().max()
+                                   / mu_ref.abs().max().clamp_min(1e-30)))
+        d = {k: float((ts[f"gstate.{k}"] - ref[f"gstate.{k}"]).abs().max())
+             for k in STATS}
+        radii_tol = 0.0 if mode == "shard_instances" else 1e-4
+        if not (rel <= 2e-5 and d_par <= 5e-5 and d_mu <= 1e-5
+                and d["xyz_gradient_accum"] <= 2e-5 and d["denom"] == 0
+                and d["max_radii2d"] <= radii_tol
+                and m["num_instances"] == rm["num_instances"]):
+            raise AssertionError(f"train_shard {mode} against the replicated "
+                                 f"step: loss rel {rel}, params {d_par}, "
+                                 f"Adam mu {d_mu}, stats {d}, instances "
+                                 f"{m['num_instances']} vs "
+                                 f"{rm['num_instances']}")
+        errs[mode] = dict(loss_rel=rel, params=d_par, adam_mu=d_mu,
+                          params_off_at_zero_gradient=edge_off, **d)
+    del after, ref
+    l_src, cap_pair = exchange_capacities(rcfg.instance_capacity_or_default,
+                                          mesh)
+
+    o = OptimizationConfig(iterations=40, densify_from_iter=8,
+                           densification_interval=24,
+                           opacity_reset_interval=10_000,
+                           densify_until_iter=1000)
+    t0 = time.perf_counter()
+    tr = DistributedTrainer(scene, mesh=mesh, cameras_per_step=BATCH,
+                            shard_gaussians=True, ocfg=o, max_sh_degree=3,
+                            feature_dim=F_DIM, capacity_headroom=1.0,
+                            device=dev)
+    active0 = int(tr.ts.gstate.alive.sum())
+    history = tr.train(iterations=40, log_every=8)
+    tr.flush_maintenance(drain=True)
+    trainer_s = time.perf_counter() - t0
+    rounds = tr.densify_log
+    if (len(rounds) != 1 or not all(h["finite"] for h in history)
+            or rounds[0]["num_cloned"] + rounds[0]["num_split"] == 0):
+        raise AssertionError(f"train_shard trainer: rounds {rounds}, "
+                             f"history {history}")
+    counts = launches()
+    say("train_shard", card=card_line().replace(" ", ""), batch=BATCH,
+        mesh="1x1",
+        step_ms_median_min_max=json.dumps(
+            {k: v["step_ms"] for k, v in report.items()}).replace(" ", ""),
+        host_syncs_per_step=json.dumps(
+            {k: v["syncs"] for k, v in report.items()}).replace(" ", ""),
+        peak_mem_bytes=json.dumps(
+            {k: v["peak"] for k, v in report.items()}).replace(" ", ""),
+        against_replicated=json.dumps(errs).replace(" ", ""),
+        instances_max_camera=int(rm["num_instances"]), cap_pair=cap_pair,
+        l_src=l_src, exchange_launches_per_step=f"{BATCH},{BATCH}",
+        trainer_steps=tr.iteration // BATCH,
+        trainer_capacity=tr.capacity, trainer_active=f"{active0}->"
+        f"{history[-1]['num_active']:.0f}->{int(tr.ts.gstate.alive.sum())}",
+        trainer_round=json.dumps(rounds[0]).replace(" ", ""),
+        trainer_s=f"{trainer_s:.2f}",
         forward_launches=counts[0], backward_launches=counts[1])
     return counts
 
@@ -2041,13 +2232,16 @@ def main(argv=None) -> int:
     del params, state, gt_image, gt_feature
     if want("train"):
         train_fwd, train_bwd = phase_train(dev, args.profile)
-    if want("kernel_loop") or want("train_loop") or want("train_batch"):
+    if (want("kernel_loop") or want("train_loop") or want("train_batch")
+            or want("train_shard")):
         t0 = time.perf_counter()
         scene = loop_scene()
         scene_s = time.perf_counter() - t0
     if want("train_batch"):
         batch_launches_train = phase_train_batch(dev, scene, at_batch4,
                                                  args.profile)
+    if want("train_shard"):
+        shard_launches = phase_train_shard(dev, scene)
     if want("kernel_loop"):
         at_loop = phase_kernel_loop(dev, scene)
     if want("train_loop"):
@@ -2069,11 +2263,13 @@ def main(argv=None) -> int:
         dict(name="raster_forward", route="cuda",
              source=src + "raster_forward.cu", replaces=tpu + "192",
              launches=serve_launches + batch_launches[0] + train_fwd
-             + loop[0] + batch_launches_train[0], **full, library_ms=None,
+             + loop[0] + batch_launches_train[0] + shard_launches[0], **full,
+             library_ms=None,
              **at_loop[("fwd", False)], **at_batch[False]),
         dict(name="raster_backward", route="cuda",
              source=src + "raster_backward.cu", replaces=tpu + "495",
-             launches=train_bwd + loop[1] + batch_launches_train[1], **bwd,
+             launches=train_bwd + loop[1] + batch_launches_train[1]
+             + shard_launches[1], **bwd,
              library_ms=None, **at_loop[("bwd", False)],
              **at_batch4[False]),
         dict(name="raster_forward_alpha_mm", route="cuda",

@@ -25,9 +25,21 @@ grid over T ranks of a torchrun launch, one process a card:
         -s <scene> -m <out> -f lseg --mesh 2x2 --cameras_per_step 4
 
 D * T must equal torchrun's world size; rank 0 alone writes the output
-folder, logs and checkpoints. ``--distributed``, ``--shard_gaussians`` and
-``--shard_instances`` are not ported and are refused. The network viewer
-and TensorBoard are not ported either: the CLI always behaves as with
+folder, logs and checkpoints. ``--shard_gaussians`` (with a mesh) keeps
+1/(D * T) of the Gaussian rows, their Adam moments and densification
+statistics on each rank; ``--shard_instances`` (with it) runs the tile-owner
+instance exchange. ``--distributed`` trains over several hosts:
+
+    torchrun --nnodes H --nproc_per_node C ... -m \
+        feature3dgs_tpu_torch.cli.train -s <colmap scene> -m <out> -f lseg \
+        --distributed [--shard_gaussians [--shard_instances]]
+
+puts the H hosts on the data axis and each host's C cards on the tile axis
+(``MultiHostTrainer``), and each rank loads the pixels and teacher maps of
+its host's camera stripe only (the test split on rank 0 only). Every rank
+joins the gather of a row-sharded state before rank 0 writes it, so the
+checkpoints and PLY files are those of a replicated run. The network viewer
+and TensorBoard are not ported: the CLI always behaves as with
 ``--disable_viewer``.
 """
 from __future__ import annotations
@@ -44,18 +56,6 @@ from argparse import ArgumentParser
 
 import torch
 import torch.distributed as dist
-
-
-def _refuse_unported(args):
-    unported = [flag for flag, on in (
-        ("--distributed", args.distributed),
-        ("--shard_gaussians", args.shard_gaussians),
-        ("--shard_instances", args.shard_instances)) if on]
-    if unported:
-        raise SystemExit(
-            f"not ported to feature3dgs_tpu_torch yet: {', '.join(unported)} "
-            "(multi-device training; use scripts/train.py, the JAX package, "
-            "for these)")
 
 
 def build_parser() -> ArgumentParser:
@@ -106,10 +106,18 @@ def build_parser() -> ArgumentParser:
                              "iteration (the loss is their mean); a multiple "
                              "of the mesh's data axis. Implies --mesh 1x1 "
                              "when no mesh is given.")
-    # multi-device flags of scripts/train.py that this package refuses
-    parser.add_argument("--distributed", action="store_true")
-    parser.add_argument("--shard_gaussians", action="store_true")
-    parser.add_argument("--shard_instances", action="store_true")
+    parser.add_argument("--distributed", action="store_true",
+                        help="multi-host training under torchrun: hosts on "
+                             "the data axis, each host's cards on the tile "
+                             "axis, each host loading its own camera stripe")
+    parser.add_argument("--shard_gaussians", action="store_true",
+                        help="row-shard the Gaussians, their Adam moments "
+                             "and densification statistics over all ranks "
+                             "(needs --mesh or --distributed)")
+    parser.add_argument("--shard_instances", action="store_true",
+                        help="route (tile, depth, id) instances to their "
+                             "tile-owner ranks with one all_to_all a camera "
+                             "position; needs --shard_gaussians")
     return parser
 
 
@@ -140,6 +148,12 @@ def _mesh_shape(args):
     single-camera Trainer. Exits naming the world size the mesh needs when
     torchrun's WORLD_SIZE (1 without torchrun) differs."""
     if not (args.mesh or args.cameras_per_step):
+        if args.shard_instances:
+            raise ValueError("--shard_instances needs --shard_gaussians "
+                             "and a device mesh (--mesh DxT)")
+        if args.shard_gaussians:
+            raise ValueError("--shard_gaussians needs a device mesh: pass "
+                             "--mesh DxT (e.g. --mesh 1x8)")
         return None
     try:
         n_data, n_tile = (int(x) for x in
@@ -158,8 +172,11 @@ def _mesh_shape(args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
-    shape = _mesh_shape(args)
+    # --distributed under torchrun with several processes: the host x card
+    # mesh covers the world, whatever --mesh says
+    multihost = args.distributed and int(os.environ.get("WORLD_SIZE",
+                                                        "1")) > 1
+    shape = None if multihost else _mesh_shape(args)
     args.save_iterations.append(args.iterations)
 
     from feature3dgs_tpu_torch import config as C
@@ -169,9 +186,13 @@ def main(argv=None) -> int:
     from feature3dgs_tpu_torch.train.trainer import Trainer
 
     device = default_device(args.device)
-    if shape is not None:
-        from feature3dgs_tpu_torch.parallel.distributed import initialize
-        initialize(device)
+    mesh = pixel_filter = None
+    if shape is not None or multihost:
+        from feature3dgs_tpu_torch.parallel import distributed as dist_lib
+        from feature3dgs_tpu_torch.parallel import make_mesh
+        dist_lib.initialize(device)
+        mesh = (dist_lib.make_host_chip_mesh() if multihost
+                else make_mesh(shape))
     n_proc = dist.get_world_size() if dist.is_initialized() else 1
     is_main = n_proc == 1 or dist.get_rank() == 0
     mcfg = C.extract_model(args)
@@ -191,11 +212,22 @@ def main(argv=None) -> int:
     log("[viewer] the network viewer and TensorBoard are not ported: "
         "running as with --disable_viewer")
 
+    if multihost:
+        # each host reads its own camera stripe's pixels and teacher maps
+        # from disk (they never cross hosts); the test split loads on the
+        # rank that evaluates it
+        def pixel_filter(split, i, n):
+            if split == "train":
+                return i in dist_lib.stripe_indices(n, mesh.data_index,
+                                                    mesh.shape["data"])
+            return is_main
+
     scene = load_scene(
         mcfg.source_path, foundation_model=mcfg.foundation_model or None,
         images_dir=mcfg.images, resolution=mcfg.resolution,
         eval_split=mcfg.eval, white_background=mcfg.white_background,
-        allow_missing_features=args.allow_missing_features)
+        allow_missing_features=args.allow_missing_features,
+        pixel_filter=pixel_filter)
     log(f"Loaded scene: {len(scene.train_cameras)} train / "
         f"{len(scene.test_cameras)} test cameras, "
         f"{scene.points.shape[0]} points, feature dim {scene.feature_dim}")
@@ -210,12 +242,21 @@ def main(argv=None) -> int:
                seed=args.seed,
                gt_cache_bytes=args.gt_cache_mb * (1 << 20) or None,
                device=device)
-    if shape is not None:
-        from feature3dgs_tpu_torch.parallel import make_mesh
+    shard = dict(shard_gaussians=args.shard_gaussians,
+                 shard_instances=args.shard_instances)
+    if multihost:
+        from feature3dgs_tpu_torch.parallel.multihost import MultiHostTrainer
+        trainer = MultiHostTrainer(scene, mesh=mesh,
+                                   cameras_per_step=args.cameras_per_step,
+                                   **shard, **tkw)
+        log(f"Multi-host training: {mesh.shape['data']} hosts x "
+            f"{mesh.shape['tile']} cards, {trainer.batch} cameras/step "
+            "(host-striped)")
+    elif mesh is not None:
         from feature3dgs_tpu_torch.parallel.trainer import DistributedTrainer
-        trainer = DistributedTrainer(scene, mesh=make_mesh(shape),
+        trainer = DistributedTrainer(scene, mesh=mesh,
                                      cameras_per_step=args.cameras_per_step,
-                                     **tkw)
+                                     **shard, **tkw)
         log(f"Mesh training: data={shape[0]} x tile={shape[1]} over "
             f"{n_proc} processes, {trainer.batch} cameras/step")
     else:
@@ -257,11 +298,13 @@ def main(argv=None) -> int:
                 # next step's collectives
                 stop_now = sync and _agree(stop_now, device)
             if stop_now:
-                # after densification, like a scheduled checkpoint
+                # after densification, like a scheduled checkpoint; every
+                # rank joins the gather of a row-sharded state
                 trainer.flush_maintenance()
+                state = trainer.full_state()
                 if is_main:
                     ckpt.save_checkpoint(mcfg.model_path, trainer.iteration,
-                                         trainer.ts)
+                                         state)
                 log(f"[preempt] checkpoint saved at iteration "
                     f"{trainer.iteration}; resume with --start_checkpoint",
                     flush=True)
@@ -291,24 +334,31 @@ def main(argv=None) -> int:
                 logf.flush()
                 last_logged_it = it
 
-            if is_main and any(i in args.test_iterations for i in span):
-                _report(trainer, scene, it)
-            if is_main and any(i in args.save_iterations for i in span):
+            # rank 0 evaluates and writes the whole state, which every rank
+            # joins gathering when the rows are sharded
+            report = any(i in args.test_iterations for i in span)
+            save = any(i in args.save_iterations for i in span)
+            state = trainer.full_state() if report or save else None
+            if is_main and report:
+                _report(trainer, state, scene, it)
+            if is_main and save:
                 print(f"\n[ITER {it}] Saving Gaussians")
-                ckpt.save_scene_ply(mcfg.model_path, it, trainer.ts.params,
-                                    trainer.ts.gstate)
-                if mcfg.speedup and trainer.ts.decoder is not None:
+                ckpt.save_scene_ply(mcfg.model_path, it, state.params,
+                                    state.gstate)
+                if mcfg.speedup and state.decoder is not None:
                     ckpt.save_decoder_checkpoint(mcfg.model_path, it,
-                                                 trainer.ts.decoder)
+                                                 state.decoder)
             if any(i in args.checkpoint_iterations for i in span):
                 # full checkpoints come after the iteration's densification
                 # in the original (train.py:151-153 follow :129-140); the
                 # PLY above comes before it (:121-126). Every rank flushes
-                # (its state stays the others'), rank 0 writes
+                # (its state stays the others') and joins the gather, rank
+                # 0 writes
                 trainer.flush_maintenance()
+                state = trainer.full_state()
                 if is_main:
                     print(f"\n[ITER {it}] Saving Checkpoint")
-                    ckpt.save_checkpoint(mcfg.model_path, it, trainer.ts)
+                    ckpt.save_checkpoint(mcfg.model_path, it, state)
 
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -349,12 +399,13 @@ def _stop_profile(prof, out_dir: str, device):
 
 
 @torch.no_grad()
-def _report(trainer, scene, iteration: int):
+def _report(trainer, state, scene, iteration: int):
     """The original training_report (train.py:203-239), to stdout: L1 and
-    PSNR on the test cameras and on 5 fixed train cameras."""
+    PSNR of the whole ``state`` on the test cameras and on 5 fixed train
+    cameras whose pixels this process holds."""
     from feature3dgs_tpu_torch.render import renderer
     from feature3dgs_tpu_torch.train import losses as L
-    params, gstate = trainer.ts.params, trainer.ts.gstate
+    params, gstate = state.params, state.gstate
     train_loaded = [c for c in scene.train_cameras if c.image is not None]
     configs = [("test", [c for c in scene.test_cameras
                          if c.image is not None]),

@@ -10,6 +10,8 @@ drops whole Gaussians, highest index first, as in the JAX package. Several
 cameras bin in one sort (``bin_gaussians_batch``: the tile key gains the
 camera, ``b * T + tile``), with the capacity applied per camera as the JAX
 package's vmap of ``bin_gaussians`` does (rasterize.py:364-369).
+``sort_instances`` sorts the triples the instance exchange
+(``parallel.sharded``) delivers to a tile owner.
 
 The JAX package's per-tile 8-row filler entries and multiple-of-128 slab
 capacity exist for TPU DMA alignment; the port has neither, so its
@@ -133,6 +135,30 @@ def bin_gaussians(rect_min: torch.Tensor, rect_max: torch.Tensor,
                                instance_capacity=instance_capacity)
     return bins._replace(total=bins.total[0],
                          num_tiles_touched=bins.num_tiles_touched[0])
+
+
+def sort_instances(tile_key: torch.Tensor, depth_key: torch.Tensor,
+                   gid: torch.Tensor, t_tiles: int):
+    """Stable (tile, depth) sort of (tile, depth, gid) triples that arrive
+    unsorted, as the receiver of the instance exchange gets them (port of
+    ``feature3dgs_tpu/ops/binning.py:sort_instances``).
+
+    ``tile_key`` [L] holds tiles in [0, t_tiles) or the sentinel
+    ``t_tiles`` (then gid is -1 and depth +inf); valid depths are > 0.2, so
+    one stable sort on ``tile << 32 | float_bits(depth)`` orders them, and
+    entries of equal tile and depth keep their arrival order. Returns
+    (gid_sorted, tile_starts, tile_counts) in this module's layout: the
+    sentinel entries sort past the last list and are cut off (one host
+    read), so the ``t_tiles`` lists cover gid_sorted exactly once, in
+    order, with no filler entries."""
+    depth_bits = depth_key.to(torch.float32).view(torch.int32).long()
+    key = (tile_key.long() << 32) | depth_bits
+    _, order = torch.sort(key, stable=True)
+    counts = torch.bincount(tile_key.long(), minlength=t_tiles + 1)[:t_tiles]
+    starts = torch.cumsum(counts, 0) - counts
+    n_valid = int(counts.sum())
+    return (gid[order[:n_valid]].to(torch.int32), starts.to(torch.int32),
+            counts.to(torch.int32))
 
 
 def tile_slices(gid_sorted: torch.Tensor, tile_starts: torch.Tensor,

@@ -1,7 +1,7 @@
 """Several cameras a step, on one card or a mesh of cards, over
 ``torch.distributed``.
 
-Port of ``feature3dgs_tpu/parallel/sharded.py`` (its replicated path):
+Port of ``feature3dgs_tpu/parallel/sharded.py``:
 
   mesh axis   what shards                   collectives
   ---------   ---------------------------   ---------------------------------
@@ -28,13 +28,25 @@ per-Gaussian gradients are summed over the whole mesh. The loss each rank
 computes for its cameras is normalised by 1 / (B * n_tile), so the world
 sum is the mean over the B cameras.
 
+Two options spread the Gaussians themselves (port of the JAX package's
+``shard_gaussians`` and ``shard_instances``):
+  * ``shard_gaussians``: each rank holds 1/D of the rows of the
+    parameters, Adam moments and densification statistics
+    (``shard_state`` / ``gather_state``). The render all-gathers the rows
+    over the whole world (``_GatherRows``) and the backward reduce-scatters
+    the gradients, so Adam and the statistics run on the rank's rows;
+  * ``shard_instances``: the tile-owner instance exchange
+    (``_exchange_losses``): each rank preprocesses and expands only its
+    rows, one ``all_to_all_single`` hands every (tile, depth, id) instance
+    to the rank that composites its tile, and that rank sorts what it
+    received and composites only its tiles, through both kernels.
+
 A mesh over a world of one process holds no process group, and every
 collective here is then the identity: the one-card path runs none.
-``shard_gaussians`` (row-sharded parameters and optimizer state) and
-``shard_instances`` (the tile-owner instance exchange) are not ported.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -44,16 +56,13 @@ from feature3dgs_tpu_torch.core.projection import CameraView
 from feature3dgs_tpu_torch.model import density, optim
 from feature3dgs_tpu_torch.model import gaussians as G
 from feature3dgs_tpu_torch.model.decoder import apply_decoder
-from feature3dgs_tpu_torch.ops.binning import tile_slices
-from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig, _views,
-                                                 composite,
+from feature3dgs_tpu_torch.ops.binning import (expand_instances,
+                                               sort_instances, tile_slices)
+from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig, _prep_view,
+                                                 _views, composite,
                                                  composite_inputs_batch,
                                                  tiles_to_image)
 from feature3dgs_tpu_torch.train import losses as L
-
-NOT_PORTED = ("{} is not ported to feature3dgs_tpu_torch yet (row-sharded "
-              "Gaussians and the instance exchange: feature3dgs_tpu/parallel/"
-              "sharded.py)")
 
 
 class Mesh:
@@ -137,6 +146,54 @@ class _SumTiles(torch.autograd.Function):
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.mesh.tile_group)
         return g, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """all_gather over the whole world, in rank order (the JAX package's
+    flat index data_index * n_tile + tile_index), concatenated along dim 0.
+    Backward: a reduce-scatter with a sum, so each rank gets the sum of
+    every rank's cotangent of its own rows: the transpose of the gather."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        x = x.contiguous()
+        out = x.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = g.new_empty((g.shape[0] // ctx.mesh.size,) + tuple(g.shape[1:]))
+        dist.reduce_scatter_tensor(out, g)
+        return out, None
+
+
+def _gather_rows(x, mesh: Mesh):
+    if mesh.size == 1:
+        return x
+    return _GatherRows.apply(x, mesh)
+
+
+def _gather_params(leaves: G.GaussianParams, alive, ndc_offset, mesh: Mesh):
+    """Every rank's rows of the parameters, ``alive`` and ``ndc_offset``,
+    in one ``_GatherRows`` of their columns side by side: the gradients of
+    the parameters and of the NDC offset (the densification statistics'
+    input) come back to this rank's rows from its backward."""
+    if mesh.size == 1:
+        return leaves, alive, ndc_offset
+    n_loc = alive.shape[0]
+    parts = [getattr(leaves, k).reshape(n_loc, -1)
+             for k in G.GaussianParams.FIELDS]
+    parts += [ndc_offset, alive.to(torch.float32)[:, None]]
+    full = torch.split(_gather_rows(torch.cat(parts, 1), mesh),
+                       [x.shape[1] for x in parts], 1)
+    cap = full[0].shape[0]
+    params = G.GaussianParams(**{
+        k: x.reshape((cap,) + tuple(getattr(leaves, k).shape[1:]))
+        for k, x in zip(G.GaussianParams.FIELDS, full)})
+    return params, full[-1][:, 0] > 0.5, full[-2]
 
 
 def _gather_tiles(x, anchor, mesh: Mesh):
@@ -287,22 +344,34 @@ def sharded_train_step(ts, cams, gt_images, gt_features, bg, iteration, *,
     B maps; fp16 teacher maps are upcast); ``iteration``: the span of B
     1-based iterations the step counts as (a scalar for B = 1), over which
     ``group_lrs`` sums each learning rate. Every rank passes the whole
-    batch; data row d trains cameras [d * B/D, (d + 1) * B/D).
+    batch of cameras; data row d trains cameras [d * B/D, (d + 1) * B/D),
+    and only those entries of the ground truth are read (the others may be
+    None).
 
     The loss is the mean over the B cameras of the reference's
     per-iteration loss; gradients are summed over the mesh and Adam runs
     once. Densification statistics take the union of visibility, the
     largest radii and the summed NDC gradients of the batch. A non-finite
-    loss discards the whole update on the device."""
-    for flag, on in (("shard_gaussians", shard_gaussians),
-                     ("shard_instances", shard_instances)):
-        if on:
-            raise NotImplementedError(NOT_PORTED.format(flag))
+    loss discards the whole update on the device.
+
+    ``shard_gaussians``: ``ts`` holds this rank's row shard
+    (``shard_state``): every rank of the world its own equal block of the
+    parameters, Adam moments and densification statistics, in rank order.
+    The render all-gathers the rows (``_GatherRows``, whose backward
+    reduce-scatters the gradients back to their rows), and Adam and the
+    statistics run on the shard. ``shard_instances`` (needs
+    ``shard_gaussians``): the tile-owner instance exchange of
+    ``_exchange_losses`` in place of the gathered render."""
     views = _views(cams)
     b, n_data, n_tile = len(views), mesh.shape["data"], mesh.shape["tile"]
     if b % n_data:
         raise ValueError(f"camera batch {b} not divisible by the data axis "
                          f"{n_data}")
+    if shard_instances and not shard_gaussians:
+        raise ValueError(
+            "shard_instances requires shard_gaussians: the instance "
+            "exchange only makes sense when Gaussian rows are "
+            "row-sharded over the mesh")
     b_loc = b // n_data
     mine = range(mesh.data_index * b_loc, (mesh.data_index + 1) * b_loc)
     params, gstate = ts.params, ts.gstate
@@ -314,28 +383,24 @@ def sharded_train_step(ts, cams, gt_images, gt_features, bg, iteration, *,
     if speedup:
         dec = {k: v.detach().requires_grad_() for k, v in ts.decoder.items()}
 
-    colors, features, _, aux, meta = _local_composite(
-        leaves, gstate.alive, gstate.active_sh_degree,
-        [views[i] for i in mine], bg, rcfg, mesh, ndc_offset)
-    total = 0.0
-    sums = []
-    for color, feature, i in zip(colors, features, mine):
-        gt_feature = gt_features[i]
-        rgb_term, ll1 = L.rgb_loss(color, gt_images[i], ocfg.lambda_dssim)
-        # this rank's share of the resized map, summed over the tile axis:
-        # the small resized map crosses ranks, not the feature tiles
-        fmap = _sum_tiles(L.resize_bilinear_from_tile_rows(
-            feature, meta["grid"], gt_feature.shape[0], gt_feature.shape[1],
-            meta["row0"], meta["rows_loc"], meta["gy_pad"]),
-            meta["anchor"], mesh)
-        if speedup:
-            fmap = apply_decoder(dec, fmap)
-        ll1_feat = L.l1_loss(fmap, gt_feature.to(torch.float32))
-        total = total + rgb_term + ocfg.feature_loss_weight * ll1_feat
-        with torch.no_grad():
-            sums.append(torch.stack([
-                ll1, ll1_feat, L.psnr(torch.clamp(color, 0, 1),
-                                      torch.clamp(gt_images[i], 0, 1))]))
+    if shard_instances:
+        total, sums, aux = _exchange_losses(
+            leaves, gstate.alive, gstate.active_sh_degree, ndc_offset, views,
+            gt_images, gt_features, bg, mesh, ocfg, rcfg, dec)
+    else:
+        full, alive, offset = leaves, gstate.alive, ndc_offset
+        if shard_gaussians:
+            full, alive, offset = _gather_params(leaves, alive, ndc_offset,
+                                                 mesh)
+        colors, features, _, aux, meta = _local_composite(
+            full, alive, gstate.active_sh_degree, [views[i] for i in mine],
+            bg, rcfg, mesh, offset)
+        total, sums = 0.0, []
+        for color, feature, i in zip(colors, features, mine):
+            term, s = _camera_loss(color, feature, gt_images[i],
+                                   gt_features[i], meta, mesh, ocfg, dec)
+            total = total + term
+            sums.append(s)
     # the tile axis computes each camera's loss n_tile times: the world sum
     # of these is the mean over the batch, and each slice's cotangent sums
     # back to exactly one share
@@ -349,24 +414,224 @@ def sharded_train_step(ts, cams, gt_images, gt_features, bg, iteration, *,
              for x, g in zip(inputs, grads)]
     scalars = torch.cat([local.detach()[None], torch.stack(sums).sum(0) * norm])
     return _apply_step_tail(ts, grads, scalars, aux, iteration, mesh=mesh,
-                            ocfg=ocfg, speedup=speedup)
+                            ocfg=ocfg, speedup=speedup,
+                            shard_gaussians=shard_gaussians)
+
+
+def _camera_loss(color, feature_local, gt_image, gt_feature, meta: dict,
+                 mesh: Mesh, ocfg, dec):
+    """One camera's reference loss from its gathered colour and this rank's
+    feature tiles, and its [l1, l1_feature, psnr] (no grad)."""
+    rgb_term, ll1 = L.rgb_loss(color, gt_image, ocfg.lambda_dssim)
+    # this rank's share of the resized map, summed over the tile axis: the
+    # small resized map crosses ranks, not the feature tiles
+    fmap = _sum_tiles(L.resize_bilinear_from_tile_rows(
+        feature_local, meta["grid"], gt_feature.shape[0], gt_feature.shape[1],
+        meta["row0"], meta["rows_loc"], meta["gy_pad"]), meta["anchor"], mesh)
+    if dec is not None:
+        fmap = apply_decoder(dec, fmap)
+    ll1_feat = L.l1_loss(fmap, gt_feature.to(torch.float32))
+    with torch.no_grad():
+        s = torch.stack([ll1, ll1_feat, L.psnr(torch.clamp(color, 0, 1),
+                                               torch.clamp(gt_image, 0, 1))])
+    return rgb_term + ocfg.feature_loss_weight * ll1_feat, s
+
+
+def _route(dest, tile, depth, gid, cap_pair: int, mesh: Mesh):
+    """Send each instance to rank ``dest``: a stable sort by destination
+    keeps each (source, destination) pair's instances in expansion order,
+    the first ``cap_pair`` of each pair go into its slots of a [D *
+    cap_pair, 3] int32 buffer (global tile, the depth's float bits, global
+    id; unused slots carry id -1), and one ``all_to_all_single`` delivers
+    every source's slots to their owner. Returns (received [D * cap_pair,
+    3], the largest number of instances a pair dropped)."""
+    d_tot = mesh.size
+    dest_s, order = torch.sort(dest, stable=True)
+    cnt = torch.bincount(dest, minlength=d_tot)
+    j = (torch.arange(dest.shape[0], device=dest.device)
+         - (torch.cumsum(cnt, 0) - cnt)[dest_s])
+    take = j < cap_pair
+    order = order[take]
+    stage = torch.tensor([0, _INF_BITS, -1], dtype=torch.int32,
+                         device=dest.device).repeat(d_tot * cap_pair, 1)
+    stage[(dest_s * cap_pair + j)[take]] = torch.stack([
+        tile[order].to(torch.int32),
+        depth[order].to(torch.float32).contiguous().view(torch.int32),
+        gid[order].to(torch.int32)], 1)
+    recv = stage
+    if d_tot > 1:
+        recv = torch.empty_like(stage)
+        dist.all_to_all_single(recv, stage)
+    return recv, (cnt - cap_pair).clamp_min(0).amax()
+
+
+# float bits of +inf: the depth of an unused exchange slot
+_INF_BITS = 0x7F800000
+
+
+# the exchange's slots over the instance capacity (the JAX package's slack)
+EXCHANGE_SLACK = 2.0
+
+
+def exchange_capacities(instance_capacity: int,
+                        mesh: Mesh) -> tuple[int, int]:
+    """The instance exchange's slots, as the JAX package sizes them: (a
+    source rank's expansion slots a camera, a multiple of 128; slots a
+    (source, destination) pair, a multiple of 8)."""
+    d_tot, n_tile = mesh.size, mesh.shape["tile"]
+    need = int(EXCHANGE_SLACK * instance_capacity)
+    return (-(-need // (128 * d_tot)) * 128,
+            -(-need // (8 * n_tile * d_tot)) * 8)
+
+
+def _exchange_losses(leaves: G.GaussianParams, alive, sh_degree: int,
+                     ndc_offset, views: list, gt_images, gt_features, bg,
+                     mesh: Mesh, ocfg, rcfg: RasterConfig, dec):
+    """The tile-owner instance exchange (port of
+    ``feature3dgs_tpu/parallel/sharded.py:_make_exchange_loss_fn``): per
+    rank, which holds 1/D of the Gaussian rows, and per batch position i,
+
+      1. preprocess only its own rows for the camera of position i of every
+         data row (the preprocess work spreads over all D ranks);
+      2. gather the per-camera table [cap, n_data, 10] (xy, conic,
+         opacity, rgb, depth) and the features [cap, F] with
+         ``_GatherRows`` (their backward reduce-scatters the gradients, so
+         they come back to their rows);
+      3. expand its rows into (tile, depth, id) instances, at most
+         ``l_src`` a camera;
+      4. route each instance to the rank that owns its tile rows of its
+         camera, data row r and tile rank tile // t_loc, at most
+         ``cap_pair`` a (source, destination) pair, with one
+         ``all_to_all_single``;
+      5. sort what it received (``ops.binning.sort_instances``) and
+         composite its real tiles with ``composite(..., tile_base)``.
+
+    Instances arrive in rank order and, from one rank, in expansion order,
+    so the stable sort gives each tile the list of the single sort. A drop
+    at the source expansion or in a pair forces ``num_instances`` up to
+    the instance capacity, so the trainer's growth logic fires. The three
+    fields travel as int32 (the depth as its float bits), so ids need no
+    float-exact range. Returns (the loss sum of this rank's cameras, their
+    [l1, l1_feature, psnr] rows, aux with this rank's rows of visibility
+    and radii)."""
+    n_data, n_tile = mesh.shape["data"], mesh.shape["tile"]
+    di, ti = mesh.data_index, mesh.tile_index
+    b_loc = len(views) // n_data
+    grid = rcfg.grid(views[0].width, views[0].height)
+    t_true = grid.num_tiles
+    rows_loc = -(-grid.grid_y // n_tile)
+    t_loc = rows_loc * grid.grid_x
+    r0 = min(ti * rows_loc, grid.grid_y)
+    mine = (min(r0 + rows_loc, grid.grid_y) - r0) * grid.grid_x
+    i_cap = rcfg.instance_capacity_or_default
+    l_src, cap_pair = exchange_capacities(i_cap, mesh)
+    n_loc = alive.shape[0]
+    row0 = mesh.rank * n_loc
+    dev = alive.device
+    p, f_dim = grid.pixels_per_tile, leaves.semantic_feature.shape[-1]
+
+    feat_full = _gather_rows(G.get_semantic(leaves), mesh)
+    opacity = torch.where(alive, G.get_opacity(leaves),
+                          torch.zeros((), device=dev))
+    scales, rots, shs = (G.get_scaling(leaves), G.get_rotation(leaves),
+                         G.get_features(leaves))
+    vis = torch.zeros(n_loc, dtype=torch.bool, device=dev)
+    rad = torch.zeros(n_loc, dtype=torch.float32, device=dev)
+    dropped = torch.zeros((), dtype=torch.long, device=dev)
+    mtc = torch.zeros((), dtype=torch.long, device=dev)
+    totals, total, sums = [], 0.0, []
+    for i in range(b_loc):
+        preps = [_prep_view(
+            leaves.xyz, opacity, views[r * b_loc + i], grid, scales=scales,
+            rotations=rots, cov3d_precomp=None, shs=shs, sh_degree=sh_degree,
+            colors_precomp=None, scale_modifier=1.0, ndc_offset=ndc_offset,
+            active_mask=alive) for r in range(n_data)]
+        misc = _gather_rows(torch.stack([torch.cat(
+            [xy, pre.conic, pre.opacity[:, None], pre.rgb, pre.depth[:, None]],
+            1) for pre, xy, _, _, _ in preps], 1), mesh)  # [cap, n_data, 10]
+        valid = torch.stack([v for *_, v in preps])
+        radius = torch.stack([pre.radius for pre, *_ in preps])
+        with torch.no_grad():
+            row, tile, _, tot = expand_instances(
+                torch.stack([q[2] for q in preps]),
+                torch.stack([q[3] for q in preps]), valid, grid,
+                instance_capacity=l_src)
+            cam = row // max(n_loc, 1)
+            tile = tile - cam * t_true
+            depth = torch.stack([pre.depth for pre, *_ in preps]).reshape(-1)
+            recv, drop = _route(cam * n_tile + tile // t_loc, tile, depth[row],
+                                row - cam * n_loc + row0, cap_pair, mesh)
+            ok = recv[:, 2] >= 0
+            gid_sorted, starts, counts = sort_instances(
+                torch.where(ok, recv[:, 0] - ti * t_loc, t_loc),
+                recv[:, 1].contiguous().view(torch.float32), recv[:, 2],
+                t_loc)
+            totals.append(tot)
+            dropped = torch.maximum(dropped, torch.maximum(
+                drop, (tot - l_src).clamp_min(0).amax()))
+            mtc = torch.maximum(mtc, counts.amax().long())
+            vis = vis | ((radius > 0) & valid).any(0)
+            rad = torch.maximum(rad, torch.where(
+                valid, radius, torch.zeros_like(radius)).amax(0))
+        xy, conic, opac, rgb, z = (x.contiguous() for x in torch.split(
+            misc[:, di], [2, 3, 1, 3, 1], 1))
+        args = (xy, conic, opac[:, 0], rgb, z[:, 0], feat_full.contiguous(),
+                gid_sorted, starts[:mine], counts[:mine], grid)
+        # only the rank's real tiles are composited (its last tile rows may
+        # lie past the image); the rest are empty tiles, T = 1
+        out = composite(args, rcfg, tile_base=ti * t_loc)
+
+        def local(x, shape, fill):
+            return torch.cat([x, torch.full((t_loc - mine, p) + shape, fill,
+                                            dtype=torch.float32, device=dev)])
+
+        color_l = (local(out.color, (3,), 0.0)
+                   + local(out.final_T, (), 1.0)[..., None] * bg)
+        color = tiles_to_image(_gather_tiles(color_l, xy, mesh)[:t_true],
+                               grid)
+        meta = {"row0": ti * rows_loc, "rows_loc": rows_loc,
+                "gy_pad": n_tile * rows_loc, "grid": grid, "anchor": xy}
+        k = di * b_loc + i
+        term, s = _camera_loss(color, local(out.feature, (f_dim,), 0.0),
+                               gt_images[k], gt_features[k], meta, mesh, ocfg,
+                               dec)
+        total = total + term
+        sums.append(s)
+    # every camera's true total is the sum of its sources' totals
+    totals = torch.stack(totals)
+    maxima = torch.stack([dropped, mtc])
+    _world_reduce_([totals], mesh)
+    _world_reduce_([maxima], mesh, dist.ReduceOp.MAX)
+    n_inst = totals.amax()
+    n_inst = torch.where(maxima[0] > 0, torch.clamp_min(n_inst, i_cap), n_inst)
+    aux = {"radii": rad, "visibility": vis, "rows_local": True,
+           "total_instances": n_inst, "max_tile_count": maxima[1]}
+    return total, sums, aux
 
 
 @torch.no_grad()
 def _apply_step_tail(ts, grads: list, scalars, aux: dict, iteration, *,
-                     mesh: Mesh, ocfg, speedup: bool) -> dict:
+                     mesh: Mesh, ocfg, speedup: bool,
+                     shard_gaussians: bool = False) -> dict:
     """The step's tail: world sums of the gradients and of [loss, l1,
     l1_feature, psnr], the densification statistics' maxima, one Adam
     update over the iteration span, the statistics fold and the metrics;
-    every update gated on a finite loss."""
+    every update gated on a finite loss. Under ``shard_gaussians`` the
+    gradients of the rows came back summed from the gather's
+    reduce-scatter, and the statistics are cut to this rank's rows."""
     params, gstate = ts.params, ts.gstate
-    _world_reduce_(grads + [scalars], mesh)
+    n_fields = len(G.GaussianParams.FIELDS)
+    _world_reduce_((grads[n_fields + 1:] if shard_gaussians else grads)
+                   + [scalars], mesh)
     vis_rad = torch.stack([aux["visibility"].to(torch.float32), aux["radii"]])
+    if not aux.get("rows_local"):
+        _world_reduce_([vis_rad], mesh, dist.ReduceOp.MAX)
+        n_loc = params.capacity
+        vis_rad = vis_rad[:, mesh.rank * n_loc:(mesh.rank + 1) * n_loc] \
+            if shard_gaussians else vis_rad
     counts = torch.stack([aux["total_instances"].long(),
                           aux["max_tile_count"].long()])
-    _world_reduce_([vis_rad], mesh, dist.ReduceOp.MAX)
     _world_reduce_([counts], mesh, dist.ReduceOp.MAX)
-    n_fields = len(G.GaussianParams.FIELDS)
     g_params = G.GaussianParams(*grads[:n_fields])
     loss = scalars[0]
     finite = torch.isfinite(loss)
@@ -379,7 +644,62 @@ def _apply_step_tail(ts, grads: list, scalars, aux: dict, iteration, *,
                                  ts.decoder_adam, lr=1e-4, keep=finite)
     density.add_densification_stats(gstate, grads[n_fields], vis_rad[0] > 0,
                                     vis_rad[1], keep=finite)
+    active = gstate.alive.sum()
+    if shard_gaussians:
+        active = active.reshape(1)
+        _world_reduce_([active], mesh)
+        active = active[0]
     return {"finite": finite, "loss": loss, "l1": scalars[1],
             "l1_feature": scalars[2], "psnr": scalars[3],
             "num_instances": counts[0], "max_tile_count": counts[1],
-            "num_active": gstate.alive.sum()}
+            "num_active": active}
+
+
+# the row-leading tensors of a GaussianState
+_STATE_ROWS = ("alive", "max_radii2d", "xyz_gradient_accum", "denom")
+
+
+def _map_rows(ts, fn):
+    """A TrainState whose row-leading tensors (parameters, Adam moments,
+    the state's rows) are ``fn`` of ``ts``'s; the rest is shared."""
+    from feature3dgs_tpu_torch.train.trainer import TrainState
+    rows = lambda p: G.GaussianParams(**{k: fn(getattr(p, k))
+                                         for k in G.GaussianParams.FIELDS})
+    adam = optim.AdamState(rows(ts.adam.mu), rows(ts.adam.nu), ts.adam.step)
+    gstate = dataclasses.replace(ts.gstate, **{k: fn(getattr(ts.gstate, k))
+                                               for k in _STATE_ROWS})
+    return TrainState(params=rows(ts.params), gstate=gstate, adam=adam,
+                      decoder=ts.decoder, decoder_adam=ts.decoder_adam)
+
+
+def shard_state(ts, mesh: Mesh):
+    """This rank's block of rows of a whole TrainState (every rank holds
+    the same whole state): rows [rank * C/D, (rank + 1) * C/D) of the
+    parameters, Adam moments and the state's rows, copied; the decoder, its
+    Adam state and the Adam step are shared with ``ts`` (steps update them
+    in place). The capacity C must be a multiple of the world size D."""
+    cap, d = ts.params.capacity, mesh.size
+    if cap % d:
+        raise ValueError(f"capacity {cap} is not a multiple of the world "
+                         f"size {d}: every rank holds an equal row shard "
+                         "(round it up, as DistributedTrainer does)")
+    lo, hi = mesh.rank * (cap // d), (mesh.rank + 1) * (cap // d)
+    return _map_rows(ts, lambda x: x[lo:hi].clone())
+
+
+def gather_state(ts, mesh: Mesh):
+    """The whole TrainState from every rank's row shard, in rank order (a
+    collective: every rank must call it)."""
+    return _map_rows(ts, lambda x: _all_rows(x, mesh))
+
+
+def _all_rows(x, mesh: Mesh):
+    """Every rank's rows of ``x`` in rank order, without autograd (bool
+    tensors travel as uint8)."""
+    if mesh.size == 1:
+        return x
+    src = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+    out = src.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, src)
+    return out.to(torch.bool) if x.dtype == torch.bool else out
+

@@ -10,14 +10,22 @@ iteration (train.py:84-91), rendered tile-sharded over ``mesh.shape
 
 Densification runs replicated: every rank folds the same summed
 statistics into its own copy of the state and draws the same split noise
-from the same seed, so the ranks' parameters stay equal.
+from the same seed, so the ranks' parameters stay equal. Under
+``shard_gaussians`` each rank holds only its row shard of the parameters,
+Adam moments and statistics (the capacity a multiple of the world size);
+densify, prune, the opacity reset and capacity growth decide over the whole
+model, so they gather the rows on every rank, run the replicated code and
+keep this rank's rows again.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 
 from feature3dgs_tpu_torch.model import gaussians as G
-from feature3dgs_tpu_torch.parallel.sharded import (NOT_PORTED, Mesh,
+from feature3dgs_tpu_torch.parallel.sharded import (Mesh, gather_state,
+                                                    shard_state,
                                                     sharded_train_step)
 from feature3dgs_tpu_torch.train.trainer import (Trainer, densify_step,
                                                  reset_opacity_step)
@@ -29,17 +37,22 @@ class DistributedTrainer(Trainer):
     so the reference's per-iteration schedule (densify every 100, opacity
     reset every 3000, the xyz learning-rate decay) keeps its meaning; the
     batch loss is the mean of the per-camera reference losses. On a 1 x 1
-    mesh it is one card taking B cameras a step."""
+    mesh it is one card taking B cameras a step.
+
+    ``shard_gaussians``: ``ts`` holds this rank's rows (``full_state``
+    gathers the whole state; every rank must call it). ``shard_instances``
+    (needs ``shard_gaussians``): the steps use the instance exchange."""
 
     _sync_tag = "dist-trainer"
 
     def __init__(self, scene, *, mesh: Mesh, cameras_per_step: int | None = None,
                  shard_gaussians: bool = False, shard_instances: bool = False,
                  **kwargs):
-        for flag, on in (("shard_gaussians", shard_gaussians),
-                         ("shard_instances", shard_instances)):
-            if on:
-                raise NotImplementedError(NOT_PORTED.format(flag))
+        if shard_instances and not shard_gaussians:
+            raise ValueError(
+                "shard_instances requires shard_gaussians: the instance "
+                "exchange only makes sense when Gaussian rows are "
+                "row-sharded over the mesh")
         self.mesh = mesh
         self.n_data = mesh.shape["data"]
         self.batch = cameras_per_step or self.n_data
@@ -47,7 +60,59 @@ class DistributedTrainer(Trainer):
             raise ValueError(
                 f"cameras_per_step {self.batch} not divisible by the data "
                 f"axis {self.n_data}")
+        self.shard_gaussians = shard_gaussians
+        self.shard_instances = shard_instances
+        self._sharded = False          # whether ts holds this rank's rows
         super().__init__(scene, **kwargs)
+        self._adopt(self.ts)
+
+    def _adopt(self, ts) -> None:
+        """Take a whole TrainState: under shard_gaussians its capacity is
+        rounded up to a multiple of the world size and this rank keeps its
+        rows."""
+        self.ts, self._sharded = ts, False
+        if self.shard_gaussians:
+            self._grow_params(ts.params.capacity)
+            self.ts, self._sharded = shard_state(self.ts, self.mesh), True
+
+    @property
+    def capacity(self) -> int:
+        """The whole model's capacity (every rank's rows)."""
+        return self.ts.params.capacity * (self.mesh.size if self._sharded
+                                          else 1)
+
+    def full_state(self):
+        """The whole TrainState: under shard_gaussians a gather of every
+        rank's rows, which every rank must join."""
+        return gather_state(self.ts, self.mesh) if self._sharded else self.ts
+
+    @contextlib.contextmanager
+    def _whole(self):
+        """``ts`` is the whole state inside the block (gathered on every
+        rank) and this rank's rows again after it."""
+        if not self._sharded:
+            yield
+            return
+        self.ts, self._sharded = gather_state(self.ts, self.mesh), False
+        try:
+            yield
+        finally:
+            self.ts, self._sharded = shard_state(self.ts, self.mesh), True
+
+    def restore_state(self, ts) -> None:
+        """Adopt a restored checkpoint's (whole) TrainState; under
+        shard_gaussians the capacity is rounded up to a multiple of the
+        world size and this rank keeps its rows."""
+        super().restore_state(ts)
+        self._adopt(self.ts)
+
+    def _grow_params(self, new_cap: int) -> None:
+        if self.shard_gaussians:
+            new_cap = -(-new_cap // self.mesh.size) * self.mesh.size
+        if new_cap <= self.capacity:
+            return
+        with self._whole():
+            super()._grow_params(new_cap)
 
     def _assemble_batch(self, cameras):
         """(views, ground-truth images, teacher maps) of one step's batch;
@@ -77,7 +142,8 @@ class DistributedTrainer(Trainer):
         metrics = sharded_train_step(
             self.ts, views, gt_images, gt_features, self.bg, span,
             mesh=self.mesh, ocfg=self.ocfg, rcfg=self.rcfg,
-            speedup=self.speedup)
+            speedup=self.speedup, shard_gaussians=self.shard_gaussians,
+            shard_instances=self.shard_instances)
         if sync:
             host_metrics, ok = self._sync_metrics(metrics, self.iteration,
                                                   self._sync_tag)
@@ -91,21 +157,27 @@ class DistributedTrainer(Trainer):
         """Densify / prune / opacity reset after the batch that ended at
         ``it``: each fires when its interval boundary falls inside the
         batch's span (the reference checks ``it % interval == 0`` per
-        camera-iteration)."""
+        camera-iteration). Under shard_gaussians they run on the whole
+        state, gathered for the round."""
         o = self.ocfg
         first = it - self.batch + 1
+        if first >= o.densify_until_iter:
+            return
         hits = lambda interval: any(i % interval == 0
                                     for i in range(first, it + 1))
-        if first < o.densify_until_iter:
-            if it > o.densify_from_iter and hits(o.densification_interval):
+        densify = it > o.densify_from_iter and hits(o.densification_interval)
+        reset = hits(o.opacity_reset_interval) or (
+            self.white_background and first <= o.densify_from_iter <= it)
+        if not (densify or reset):
+            return
+        with self._whole():
+            if densify:
                 noise, extent = self._densify_inputs()
                 self.ts, report = densify_step(
                     self.ts, noise, extent, ocfg=o,
                     use_screen_size_prune=it > o.opacity_reset_interval)
                 self._pending_reports.append((it, report, metrics))
-            if hits(o.opacity_reset_interval) or (
-                    self.white_background
-                    and first <= o.densify_from_iter <= it):
+            if reset:
                 self.ts = reset_opacity_step(self.ts)
 
     def train(self, iterations: int | None = None, log_every: int = 50,

@@ -255,6 +255,11 @@ class Trainer:
                              f"on {self.device}")
         self.ts = ts
 
+    def full_state(self) -> TrainState:
+        """The whole TrainState, as checkpoints and PLY files hold it
+        (``parallel.trainer.DistributedTrainer`` gathers its row shards)."""
+        return self.ts
+
     def pick_camera(self):
         """Random sampling without replacement within an epoch
         (train.py:84-86)."""

@@ -143,3 +143,44 @@ def torch_full(n, value):
 # both packages' count on this scene (the JAX package's TPU bench recorded
 # 304,627 for it: a TPU-side figure, not this CPU binning's)
 SERVING_SCENE_INSTANCES = 303_278
+
+
+@pytest.mark.parametrize("t_tiles,n_valid,n_unused", [(6, 300, 40),
+                                                      (12, 2000, 0),
+                                                      (4, 0, 16)])
+def test_sort_instances_matches_jax(t_tiles, n_valid, n_unused):
+    """The exchange receiver's sort: (tile, depth, id) triples in arrival
+    order, unused slots (tile t_tiles, depth inf, id -1) among them, and
+    depths drawn from a few values so that ties are many. Each tile's list
+    equals the JAX package's once its filler entries are removed (equal
+    depths keep their arrival order in both), the unused slots are cut off
+    and the lists cover gid_sorted once, in order."""
+    rng = np.random.RandomState(t_tiles)
+    tile = rng.randint(0, t_tiles, n_valid).astype(np.int32)
+    depth = rng.choice(np.float32([0.3, 1.25, 2.0, 7.5]), n_valid)
+    gid = rng.permutation(4 * n_valid + 1)[:n_valid].astype(np.int32)
+    at = np.sort(rng.choice(n_valid + n_unused, n_unused, replace=False))
+    tile = np.insert(tile, at - np.arange(n_unused), t_tiles)
+    depth = np.insert(depth, at - np.arange(n_unused), np.inf).astype(
+        np.float32)
+    gid = np.insert(gid, at - np.arange(n_unused), -1).astype(np.int32)
+    counts = np.bincount(tile, minlength=t_tiles + 1)[:t_tiles].astype(
+        np.int32)
+    _, jgid, jstarts = jbin.sort_instances(
+        jnp.asarray(tile), jnp.asarray(depth), jnp.asarray(gid),
+        jnp.asarray(counts), t_tiles)
+    jgid, jstarts = np.asarray(jgid), np.asarray(jstarts)
+    pgid, pstarts, pcounts = pbin.sort_instances(t(tile), t(depth), t(gid),
+                                                 t_tiles)
+    pgid, pstarts = pgid.numpy(), pstarts.numpy()
+    np.testing.assert_array_equal(pcounts.numpy(), counts)
+    assert pgid.shape == (n_valid,) and pgid.dtype == np.int32
+    np.testing.assert_array_equal(pstarts, np.cumsum(counts) - counts)
+    for k in range(t_tiles):
+        ours = pgid[pstarts[k]:pstarts[k] + counts[k]]
+        np.testing.assert_array_equal(
+            ours, jgid[jstarts[k]:jstarts[k] + counts[k]], err_msg=str(k))
+        # arrival order among equal depths
+        mine = np.flatnonzero(tile == k)
+        want = mine[np.argsort(depth[mine], kind="stable")]
+        np.testing.assert_array_equal(ours, gid[want])

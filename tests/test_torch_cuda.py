@@ -779,3 +779,114 @@ def test_batched_train_step_launches_once_each_way(dev):
             rcfg=rcfg, speedup=False)["loss"]))
     assert m["finite"] == 1.0
     assert abs(m["loss"] - np.mean(losses)) <= 2e-5 * abs(np.mean(losses))
+
+
+def _shard_step_inputs(dev):
+    """4 cameras of a small synthetic scene and a fresh TrainState of its
+    points, on ``dev``."""
+    from feature3dgs_tpu_torch.data.synthetic import synthetic_scene
+    from feature3dgs_tpu_torch.model import gaussians as G
+    from feature3dgs_tpu_torch.train.trainer import TrainState
+    scene = synthetic_scene(n_cams=4, w=96, h=64, n_pts=400, f_dim=8, seed=2)
+    params, gstate = G.create_from_pcd(scene.points, scene.colors,
+                                       max_sh_degree=2, feature_dim=8,
+                                       capacity=512, device=dev)
+    params.semantic_feature = torch.from_numpy(np.random.RandomState(2).randn(
+        512, 1, 8).astype(np.float32) * 0.1).to(dev)
+    gstate.active_sh_degree = 2
+    return TrainState.create(params, gstate, device=dev), scene.train_cameras
+
+
+def _batch_on(cams, device):
+    """Views, images and teacher maps of ``cams`` on ``device``."""
+    return ([c.to_view(device) for c in cams],
+            [torch.from_numpy(c.image).to(device) for c in cams],
+            [torch.from_numpy(c.semantic_feature).to(device) for c in cams])
+
+
+@pytest.mark.parametrize("mode", ["shard_gaussians", "shard_instances"])
+def test_row_sharded_steps_on_the_card(dev, mode):
+    """On a 1 x 1 mesh, a ``shard_gaussians`` step and an instance-exchange
+    step match the replicated step from the same state at the mesh step's
+    bars (loss 2e-5 relative, parameters 5e-5, xyz_gradient_accum 2e-5,
+    denom exact, max_radii2d exact for the exchange), and the exchange
+    step on the card matches the same step on the CPU (the plain versions)
+    at those bars. The exchange composites each camera alone: one forward
+    and one backward launch a camera."""
+    import copy
+
+    from feature3dgs_tpu_torch.model.gaussians import GaussianParams
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
+    from feature3dgs_tpu_torch.parallel import make_mesh, sharded_train_step
+    from feature3dgs_tpu_torch.parallel.sharded import shard_state
+    from feature3dgs_tpu_torch.train.trainer import OptimizationConfig
+    flags = dict(shard_gaussians=True,
+                 shard_instances=mode == "shard_instances")
+
+    def step(ts, device, **kw):
+        return sharded_train_step(
+            ts, *_batch_on(cams, device), torch.zeros(3, device=device),
+            np.arange(1, 5), mesh=make_mesh((1, 1)),
+            ocfg=OptimizationConfig(), rcfg=RasterConfig(
+                tile_w=16, tile_h=16, instance_capacity=1 << 16), **kw)
+
+    start, cams = _shard_step_inputs(dev)
+    ref = copy.deepcopy(start)
+    rm = step(ref, dev)
+    got = shard_state(copy.deepcopy(start), make_mesh((1, 1)))
+    cuda_raster.FORWARD_LAUNCHES = cuda_raster.BACKWARD_LAUNCHES = 0
+    m = step(got, dev, **flags)
+    n = 4 if flags["shard_instances"] else 1
+    assert (cuda_raster.FORWARD_LAUNCHES,
+            cuda_raster.BACKWARD_LAUNCHES) == (n, n)
+    cpu = torch.device("cpu")
+    on_cpu = copy.deepcopy(start)
+    for obj in (on_cpu.params, on_cpu.adam.mu, on_cpu.adam.nu):
+        for k in GaussianParams.FIELDS:
+            setattr(obj, k, getattr(obj, k).cpu())
+    for k in ("alive", "max_radii2d", "xyz_gradient_accum", "denom"):
+        setattr(on_cpu.gstate, k, getattr(on_cpu.gstate, k).cpu())
+    on_cpu.adam.step = on_cpu.adam.step.cpu()
+    cm = step(on_cpu, cpu, **flags)
+    for other, om in ((ref, rm), (on_cpu, cm)):
+        assert abs(float(m["loss"]) - float(om["loss"])) <= 2e-5 * abs(
+            float(om["loss"]))
+        assert int(m["num_instances"]) == int(om["num_instances"])
+        for k in GaussianParams.FIELDS:
+            err = (getattr(got.params, k).cpu() - getattr(other.params, k)
+                   .cpu()).abs().max()
+            assert float(err) <= 5e-5, k
+        g, o = got.gstate, other.gstate
+        assert float((g.xyz_gradient_accum.cpu()
+                      - o.xyz_gradient_accum.cpu()).abs().max()) <= 2e-5
+        assert torch.equal(g.denom.cpu(), o.denom.cpu())
+        radii = (g.max_radii2d.cpu() - o.max_radii2d.cpu()).abs().max()
+        assert float(radii) <= (0.0 if flags["shard_instances"] else 1e-4)
+
+
+def test_row_sharded_trainer_on_the_card(dev):
+    """``DistributedTrainer(shard_gaussians=True, shard_instances=True)``
+    on a 1 x 1 mesh trains 6 steps of 2 cameras over a densify round and
+    an opacity reset: finite losses, the round applied, a whole state as
+    big as the shard at world size 1."""
+    from feature3dgs_tpu_torch.data.synthetic import synthetic_scene
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
+    from feature3dgs_tpu_torch.parallel import DistributedTrainer, make_mesh
+    from feature3dgs_tpu_torch.train.trainer import OptimizationConfig
+    scene = synthetic_scene(n_cams=4, w=96, h=64, n_pts=400, f_dim=8, seed=0)
+    tr = DistributedTrainer(
+        scene, mesh=make_mesh((1, 1)), cameras_per_step=2,
+        shard_gaussians=True, shard_instances=True,
+        ocfg=OptimizationConfig(iterations=12, densify_from_iter=2,
+                                densification_interval=6,
+                                opacity_reset_interval=8,
+                                densify_grad_threshold=1e-6),
+        rcfg=RasterConfig(tile_w=16, tile_h=16, instance_capacity=1 << 16),
+        max_sh_degree=2, device=dev)
+    history = tr.train(iterations=12, log_every=4)
+    tr.flush_maintenance(drain=True)
+    assert all(h["finite"] == 1.0 for h in history)
+    assert [r["iteration"] for r in tr.densify_log] == [6, 12]
+    assert tr.full_state().params.capacity == tr.capacity
+    assert tr.full_state().params.xyz.device.type == dev.type

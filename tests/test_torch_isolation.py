@@ -154,26 +154,35 @@ def _call_entry_point(name, tmp_path, **kw):
         # the device is resolved before the file is opened
         from feature3dgs_tpu_torch.train.checkpoints import load_checkpoint
         return load_checkpoint(str(tmp_path / "missing.ckpt"), **kw)
-    if name in ("Trainer", "DistributedTrainer"):
+    if name in ("Trainer", "DistributedTrainer", "DistributedTrainer.shard",
+                "MultiHostTrainer"):
         from feature3dgs_tpu_torch.data.synthetic import synthetic_scene
         from feature3dgs_tpu_torch.parallel import (DistributedTrainer,
                                                     make_mesh)
+        from feature3dgs_tpu_torch.parallel.multihost import MultiHostTrainer
         from feature3dgs_tpu_torch.train.trainer import Trainer
         sc = synthetic_scene(n_cams=2, w=16, h=16, n_pts=8, f_dim=4)
         if name == "Trainer":
             return Trainer(sc, **kw)
-        return DistributedTrainer(sc, mesh=make_mesh((1, 1)),
-                                  cameras_per_step=2, **kw)
+        if name == "MultiHostTrainer":
+            return MultiHostTrainer(sc, mesh=make_mesh((1, 1)), **kw)
+        return DistributedTrainer(
+            sc, mesh=make_mesh((1, 1)), cameras_per_step=2,
+            shard_gaussians=name.endswith("shard"),
+            shard_instances=name.endswith("shard"), **kw)
     if name == "parallel.initialize":
         # a single process (no WORLD_SIZE): the device is resolved, no group
         from feature3dgs_tpu_torch.parallel.distributed import initialize
         assert "WORLD_SIZE" not in os.environ
         assert initialize(**kw) is False
         return None
-    if name == "cli.train.main":
+    if name in ("cli.train.main", "cli.train.main.sharded"):
         from feature3dgs_tpu_torch.cli import train
         # the device is resolved before the scene is read
         argv = ["-s", str(tmp_path / "no_scene"), "-m", str(tmp_path / "out")]
+        if name.endswith("sharded"):
+            argv += ["--distributed", "--mesh", "1x1", "--shard_gaussians",
+                     "--shard_instances"]
         return train.main(argv + (["--device", kw["device"]] if kw else []))
     if name == "load_lpips_weights":
         from feature3dgs_tpu_torch.metrics.lpips import load_lpips_weights
@@ -204,14 +213,17 @@ ENTRY_POINTS = ["load_gaussians_ply", "load_decoder_checkpoint",
                 "gaussians_from_numpy", "decoder_from_numpy",
                 "camera_from_numpy", "train_state_from_numpy", "init_adam",
                 "TrainState.create", "load_checkpoint", "Trainer",
-                "DistributedTrainer", "parallel.initialize",
-                "load_lpips_weights", "cli.train.main", "cli.render.main",
+                "DistributedTrainer", "DistributedTrainer.shard",
+                "MultiHostTrainer", "parallel.initialize",
+                "load_lpips_weights", "cli.train.main",
+                "cli.train.main.sharded", "cli.render.main",
                 "cli.segmentation.main", "cli.segmentation_metric.main",
                 "cli.metrics.main", "cli.full_eval.main"]
 # the device is resolved first, then these fail on their missing input
 NEEDS_A_FILE = {"load_decoder_checkpoint": FileNotFoundError,
                 "load_checkpoint": FileNotFoundError,
                 "cli.train.main": ValueError,
+                "cli.train.main.sharded": ValueError,
                 "cli.render.main": FileNotFoundError,
                 "cli.segmentation.main": FileNotFoundError,
                 "cli.segmentation_metric.main": FileNotFoundError}

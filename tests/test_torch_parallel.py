@@ -343,13 +343,24 @@ def test_sharded_train_step_1x1_matches_jax(n_cams, monkeypatch):
 
 
 def test_sharded_step_refuses_what_is_not_ported():
+    """The instance exchange without row-sharded Gaussians is refused with
+    the JAX package's message, by the step and by the trainer; a mesh
+    larger than the world is refused too."""
     _, pts = _model()
     cams, gt_images, gt_features = _batch(2)
-    for flag in ("shard_gaussians", "shard_instances"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            sharded_train_step(
-                pts, [c[1] for c in cams], t(gt_images), t(gt_features),
-                torch.zeros(3), [1, 2], mesh=make_mesh((1, 1)),
-                ocfg=ptrainer.OptimizationConfig(), rcfg=PCFG, **{flag: True})
+    msg = "shard_instances requires shard_gaussians"
+    with pytest.raises(ValueError, match=msg):
+        sharded_train_step(
+            pts, [c[1] for c in cams], t(gt_images), t(gt_features),
+            torch.zeros(3), [1, 2], mesh=make_mesh((1, 1)),
+            ocfg=ptrainer.OptimizationConfig(), rcfg=PCFG,
+            shard_instances=True)
+    from feature3dgs_tpu_torch.data.synthetic import synthetic_scene
+    from feature3dgs_tpu_torch.parallel import DistributedTrainer
+    with pytest.raises(ValueError, match=msg):
+        DistributedTrainer(synthetic_scene(n_cams=2, w=W, h=H, n_pts=20,
+                                           f_dim=F_DIM),
+                           mesh=make_mesh((1, 1)), shard_instances=True,
+                           device="cpu")
     with pytest.raises(ValueError, match="world size of 4"):
         make_mesh((1, 4))

@@ -1,9 +1,10 @@
 """The port's train CLI on the CPU: ``feature3dgs_tpu_torch.cli.train.main``
 in process on a tiny Blender-style scene written to ``tmp_path``: the
-artifact tree, B cameras a step, the mesh's world-size check, the refused
-multi-device flags, resuming from a checkpoint, the profile, the render
-CLI on the result, and every flag of scripts/train.py and scripts/render.py
-parsing in the port's CLIs.
+artifact tree, B cameras a step, the mesh's world-size check, the
+row-sharding flags refused without a mesh and trained with one (their
+checkpoint read by the JAX package), resuming from a checkpoint, the
+profile, the render CLI on the result, and every flag of scripts/train.py
+and scripts/render.py parsing in the port's CLIs.
 """
 import argparse
 import importlib.util
@@ -137,12 +138,56 @@ def test_train_cli_speedup_alpha_matmul_and_profile(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--distributed"], ["--shard_gaussians"], ["--shard_instances"]])
+    ["--distributed", "--shard_gaussians"], ["--shard_gaussians"],
+    ["--shard_instances"]])
 def test_train_cli_refuses_multi_device_flags(flags, scene_dir, tmp_path):
-    with pytest.raises(SystemExit, match="not ported.*" + flags[0]):
+    """The row-sharding flags without a mesh (``--distributed`` in one
+    process gives none) raise scripts/train.py's errors, before anything
+    is written."""
+    want = {"--shard_gaussians": "--shard_gaussians needs a device mesh: "
+                                 "pass --mesh DxT",
+            "--shard_instances": "--shard_instances needs --shard_gaussians "
+                                 "and a device mesh"}[flags[-1]]
+    with pytest.raises(ValueError, match=want):
         train_cli.main(["-s", scene_dir, "-m", str(tmp_path / "o"),
                         "--device", "cpu", *flags])
     assert not os.path.exists(tmp_path / "o")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--shard_gaussians"], ["--shard_gaussians", "--shard_instances"]])
+def test_train_cli_row_sharded_checkpoint_loads_in_jax(flags, scene_dir,
+                                                        tmp_path, capsys):
+    """``--mesh 1x1 --shard_gaussians`` (and the instance exchange) trains
+    in process over densify rounds and an opacity reset; its checkpoint is
+    the JAX package's format (the JAX reader gives the port reader's
+    arrays) and its PLY holds the densified model."""
+    from feature3dgs_tpu.train import checkpoints as jckpt
+    out = str(tmp_path / "o")
+    rc = train_cli.main([
+        "-s", scene_dir, "-m", out, "-f", "lseg", "--iterations", "12",
+        "--save_iterations", "12", "--checkpoint_iterations", "12",
+        "--test_iterations", "12", "--sync_every", "4", "--mesh", "1x1",
+        *flags, *SMALL])
+    assert rc == 0
+    text = capsys.readouterr().out
+    assert "Mesh training: data=1 x tile=1" in text
+    assert "[ITER 12] Evaluating train" in text
+    path = os.path.join(out, "chkpnt12.ckpt")
+    ts, it = ckpt.load_checkpoint(path, device="cpu")
+    jts, jit_ = jckpt.load_checkpoint(path)
+    assert it == jit_ == 12 and int(ts.adam.step) == 12
+    for k in ("xyz", "opacity", "scaling", "semantic_feature"):
+        np.testing.assert_array_equal(np.asarray(getattr(jts.params, k)),
+                                      getattr(ts.params, k).numpy())
+    np.testing.assert_array_equal(np.asarray(jts.gstate.alive),
+                                  ts.gstate.alive.numpy())
+    assert int(ts.gstate.alive.sum()) > 300             # densified
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        last = json.loads(f.read().splitlines()[-1])
+    assert last["iteration"] == 12 and np.isfinite(last["loss"])
+    assert os.path.exists(os.path.join(
+        out, "point_cloud/iteration_12/point_cloud.ply"))
 
 
 @pytest.mark.parametrize("case", ["cameras_per_step", "mesh_1x4"])

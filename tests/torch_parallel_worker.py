@@ -1,16 +1,22 @@
 """One rank of the multi-process runs of tests/test_torch_parallel_gloo.py.
 
     python -m tests.torch_parallel_worker INPUTS.npz OUT_DIR
+    python -m tests.torch_parallel_worker trainers INPUTS.npz OUT_DIR
 
 with torchrun's variables set (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT).
 Joins a gloo process group on the CPU, builds a 2 x 2 ("data", "tile")
 mesh, renders the inputs' camera 0 tile-sharded (``rasterize_tile_sharded``)
-and takes one ``sharded_train_step`` over the inputs' B cameras, then writes
-what this rank holds to OUT_DIR/rank{RANK}.npz. Imports the port and torch
-only.
+and takes, from the inputs' state, one ``sharded_train_step`` over the
+inputs' B cameras in each mode: replicated, with this rank's row shard
+(``shard_gaussians``) and through the instance exchange (``shard_gaussians``
+and ``shard_instances``), the exchange also on a 1 x 4 mesh. Writes what this rank holds (its shard in the
+sharded modes) to OUT_DIR/rank{RANK}.npz. ``trainers`` runs the two
+trainers of tests/test_torch_multihost.py (``trainers`` below). Imports the
+port and torch only.
 """
 from __future__ import annotations
 
+import copy
 import os
 import sys
 
@@ -29,6 +35,7 @@ def main(inputs: str, out_dir: str) -> None:
                                                 rasterize_tile_sharded,
                                                 sharded_train_step)
     from feature3dgs_tpu_torch.parallel.distributed import initialize
+    from feature3dgs_tpu_torch.parallel.sharded import shard_state
     from feature3dgs_tpu_torch.train.trainer import OptimizationConfig
 
     assert initialize(device="cpu")
@@ -59,19 +66,125 @@ def main(inputs: str, out_dir: str) -> None:
                                      bg=torch.zeros(3), config=rcfg,
                                      mesh=mesh)
     out.update({f"render_{k}": v.numpy() for k, v in img.items()})
-    m = sharded_train_step(
-        ts, cams, torch.from_numpy(z["gt_images"]),
-        torch.from_numpy(z["gt_features"]), torch.zeros(3),
-        np.arange(1, n_cams + 1), mesh=mesh, ocfg=OptimizationConfig(),
-        rcfg=rcfg)
-    out.update({f"metric_{k}": float(v) for k, v in m.items()})
-    out.update({f"param_{k}": getattr(ts.params, k).numpy() for k in FIELDS})
-    for k in ("xyz_gradient_accum", "denom", "max_radii2d"):
-        out[f"gstate_{k}"] = getattr(ts.gstate, k).numpy()
-    out["adam_step"] = int(ts.adam.step)
+    # the replicated step, then from the same state one step with this
+    # rank's row shard and one through the instance exchange
+    # the exchange again on a 1 x 4 mesh, whose last two tile ranks own
+    # only tile rows past the 2-row grid
+    start = copy.deepcopy(ts)
+    exchange = dict(shard_gaussians=True, shard_instances=True)
+    for prefix, on, flags in (("", mesh, {}),
+                              ("sg_", mesh, dict(shard_gaussians=True)),
+                              ("si_", mesh, exchange),
+                              ("si14_", make_mesh((1, 4)), exchange)):
+        ts = copy.deepcopy(start)
+        ts = shard_state(ts, on) if flags else ts
+        m = sharded_train_step(
+            ts, cams, torch.from_numpy(z["gt_images"]),
+            torch.from_numpy(z["gt_features"]), torch.zeros(3),
+            np.arange(1, n_cams + 1), mesh=on, ocfg=OptimizationConfig(),
+            rcfg=rcfg, **flags)
+        out.update({f"{prefix}metric_{k}": float(v) for k, v in m.items()})
+        out.update({f"{prefix}param_{k}": getattr(ts.params, k).numpy()
+                    for k in FIELDS})
+        for k in ("xyz_gradient_accum", "denom", "max_radii2d"):
+            out[f"{prefix}gstate_{k}"] = getattr(ts.gstate, k).numpy()
+        out[f"{prefix}adam_step"] = int(ts.adam.step)
     np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **out)
     torch.distributed.destroy_process_group()
 
 
+# the trainers' run: scene, schedule and rasterizer of both packages' runs
+TRAIN = dict(n_cams=4, w=48, h=32, n_pts=100, f_dim=4, scene_seed=1,
+             iterations=30, log_every=10, densify_from_iter=5,
+             densification_interval=10, opacity_reset_interval=20,
+             densify_until_iter=1000, densify_grad_threshold=1e-5,
+             max_sh_degree=2, capacity_headroom=1.2, seed=3,
+             instance_capacity=1 << 13)
+
+
+def trainers(inputs: str, out_dir: str) -> None:
+    """A ``DistributedTrainer(shard_gaussians=True)`` on a 2 x 2 mesh, then
+    a ``MultiHostTrainer`` on the host x card mesh of LOCAL_WORLD_SIZE
+    (2 hosts of 2 ranks), whose ranks hold the pixels of their host's
+    camera stripe only; each with the split noise of INPUTS, round by
+    round. Every rank joins the gathers; rank 0 writes both whole states,
+    and every rank the rows it held, to OUT_DIR/trainers{RANK}.npz."""
+    torch.set_num_threads(1)
+    from feature3dgs_tpu_torch.data.synthetic import synthetic_scene
+    from feature3dgs_tpu_torch.model.optim import LRConfig
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
+    from feature3dgs_tpu_torch.parallel import DistributedTrainer, make_mesh
+    from feature3dgs_tpu_torch.parallel.distributed import (
+        initialize, make_host_chip_mesh, stripe_indices)
+    from feature3dgs_tpu_torch.parallel.multihost import MultiHostTrainer
+    from feature3dgs_tpu_torch.train.trainer import OptimizationConfig
+
+    assert initialize(device="cpu")
+    z = np.load(inputs)
+    c = TRAIN
+    ocfg = OptimizationConfig(
+        iterations=c["iterations"], densify_from_iter=c["densify_from_iter"],
+        densification_interval=c["densification_interval"],
+        densify_until_iter=c["densify_until_iter"],
+        opacity_reset_interval=c["opacity_reset_interval"],
+        densify_grad_threshold=c["densify_grad_threshold"],
+        lr=LRConfig(position_lr_max_steps=c["iterations"]))
+    kw = dict(ocfg=ocfg, rcfg=RasterConfig(
+        tile_w=16, tile_h=16, chunk=16,
+        instance_capacity=c["instance_capacity"]),
+        max_sh_degree=c["max_sh_degree"],
+        capacity_headroom=c["capacity_headroom"], seed=c["seed"],
+        device="cpu")
+
+    def scene():
+        return synthetic_scene(n_cams=c["n_cams"], w=c["w"], h=c["h"],
+                               n_pts=c["n_pts"], f_dim=c["f_dim"],
+                               seed=c["scene_seed"])
+
+    def noise_from(prefix):
+        noises = [z[k] for k in sorted((k for k in z.files
+                                        if k.startswith(prefix)),
+                                       key=lambda k: int(k.split("_")[-1]))]
+
+        def densify_inputs(self):
+            noise = torch.from_numpy(noises.pop(0))
+            assert noise.shape[1] == self.ts.params.capacity
+            return noise, self._extent_dev
+        return densify_inputs
+
+    out = {}
+    runs = (("dist_", DistributedTrainer, make_mesh((2, 2)),
+             dict(shard_gaussians=True), scene()),)
+    mesh = make_host_chip_mesh()
+    striped = scene()
+    stripe = stripe_indices(c["n_cams"], mesh.data_index, mesh.shape["data"])
+    for cam in striped.train_cameras:
+        if cam.uid not in stripe:
+            cam.image = cam.semantic_feature = None
+            cam.pixels_loaded = False
+    runs += (("mh_", MultiHostTrainer, mesh, {}, striped),)
+    for prefix, cls, m, flags, sc in runs:
+        cls = type(cls.__name__, (cls,),
+                   {"_densify_inputs": noise_from(prefix + "noise_")})
+        tr = cls(sc, mesh=m, **flags, **kw)
+        history = tr.train(iterations=c["iterations"],
+                           log_every=c["log_every"])
+        tr.flush_maintenance(drain=True)
+        out[prefix + "shard_rows"] = tr.ts.params.capacity
+        out[prefix + "xyz_rows"] = tr.ts.params.xyz.numpy()
+        whole = tr.full_state()
+        out[prefix + "capacity"] = whole.params.capacity
+        out[prefix + "alive"] = whole.gstate.alive.numpy()
+        out[prefix + "loss"] = history[-1]["loss"]
+        out[prefix + "rounds"] = len(tr.densify_log)
+        out.update({prefix + k: getattr(whole.params, k).numpy()
+                    for k in FIELDS})
+    np.savez(os.path.join(out_dir, f"trainers{mesh.rank}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    if sys.argv[1] == "trainers":
+        trainers(*sys.argv[2:4])
+    else:
+        main(*sys.argv[1:3])

@@ -124,11 +124,39 @@ Phases, one line each; any failure raises and exits non-zero:
                exchange's instances against its slots; then
                DistributedTrainer(shard_gaussians=True) for 10 steps of 4
                cameras over one densify round.
+  viewer       the viewers on the serve scene (128 channels through the
+               128->512 decoder, 1216x800): cli.view's serve loop on a
+               NetworkGUI in a thread on a free loopback port; a client
+               asks for each of the 6 render modes at orbit view 0 (3
+               frames each) and 2 frames at scaling 0.5; every frame equals
+               render_net_image of a direct render bit for bit, one forward
+               launch a frame; the client's round trip and the direct
+               path's ms (median a mode), blocking calls of an RGB frame,
+               peak memory. Then the WebViewer: /info and 4 /render PNGs at
+               1216x800, each decoded and equal to the direct render's
+               image; ms a request.
+  encoders     the teacher encoders at published widths, seeded weights
+               built on the card: LSeg ViT-L/16 (encode_image of a 480x360
+               image, median of 3 after a warm-up, peak memory; the f32
+               output of a 160x128 crop against the same weights on the
+               CPU, max-normalised, 1e-4), CLIP ViT-B/32 (CLIPConfig(), card against CPU at
+               1e-4), SAM ViT-H (1280 wide, 32 blocks, global attention at
+               7/15/23/31: encode_image timed on the card; a 2-block copy at
+               full width, one windowed and one global block, against the
+               CPU at 1e-4, embedding and decoder logits); then
+               segment_time's loop (8 points) on an embedding rendered
+               from the serve scene through a seeded 128->256 decoder and
+               resized to SAM's 42x64 grid, and through ViT-H on the
+               rendered image: masks/s of each and their ratio; auto_masks
+               at 16 points a side with the default filters and with none.
   train_cli    python -m feature3dgs_tpu_torch.cli.train as a subprocess on
                a small Blender-style scene (4 train and 2 test frames of
                128x128, 16-d teacher maps, 2000 points), 40 iterations with
-               densify rounds, a save and a checkpoint; the artifact tree
-               and the exit code.
+               densify rounds, a save and a checkpoint, the viewer on a free
+               port: a SIBR client reads a frame and the metrics at each of
+               the first 3 sync points (every 10 iterations) while it
+               trains; the artifact tree, the exit code, and whether
+               TensorBoard wrote its event file.
   serve_cli    the render and downstream CLIs on that model, as
                subprocesses, several at once: the render CLI with
                --render_batch 3 --novel_view --num_views 6 --video, and one
@@ -192,9 +220,14 @@ EDIT_CONFIGS = {
 }
 
 
+T_START = time.perf_counter()
+
+
 def say(phase: str, **fields):
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-          flush=True)
+    """One result line, stamped with the seconds since the script began
+    (the gaps between stamps are the phases' wall times)."""
+    print(f"[{phase}] t={time.perf_counter() - T_START:.1f} "
+          + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
 def card_line() -> str:
@@ -2009,6 +2042,13 @@ def phase_train_loop(dev, scene, scene_s):
     return launches, mm_launches
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def run_clis(phase, cmds, timeout=300):
     """Run ``{name: argv}`` CLI subprocesses together from the checkout;
     returns {name: seconds} and raises on any exit code but 0."""
@@ -2043,14 +2083,44 @@ def phase_train_cli(work):
                                 size=128, f_dim=16, n_pts=2000, seed=0,
                                 n_test=2)
     out = os.path.join(work, "out")
+    port = free_port()
     train = [
         "feature3dgs_tpu_torch.cli.train", "-s", scene, "-m", out, "-f",
         "lseg", "--eval", "--iterations", "40", "--densify_from_iter", "5",
         "--densification_interval", "10", "--opacity_reset_interval", "30",
         "--densify_grad_threshold", "1e-7", "--save_iterations", "20",
         "--checkpoint_iterations", "30", "--test_iterations", "40",
-        "--sync_every", "10"]
+        "--sync_every", "10", "--port", str(port)]
+    # a SIBR client reads a frame at each of the first 3 sync points while
+    # the CLI trains (each message asks to train on)
+    from feature3dgs_tpu_torch.data.dataset import load_scene
+    cam = load_scene(scene, foundation_model="lseg").train_cameras[0]
+    msg = sibr_message(cam.view, cam.full_proj, 128, 128, cam.fovx, cam.fovy)
+    seen = {"frames": []}
+
+    def client():
+        try:
+            c = SibrClient(port, timeout=240)
+            for _ in range(3):
+                seen["frames"].append(c.frame(msg))
+            c.close()
+        except Exception as e:        # reported below
+            seen["error"] = repr(e)
+
+    import threading
+    viewer = threading.Thread(target=client, daemon=True)
+    viewer.start()
     seconds = run_clis("train_cli", {"train": train})["train"]
+    viewer.join(timeout=30)
+    frames = seen["frames"]
+    if len(frames) != 3 or any(
+            np.frombuffer(img, np.uint8).std() == 0 or metrics["#"] <= 0
+            for img, metrics, _ in frames):
+        raise AssertionError(f"train_cli: viewer got {len(frames)} frames "
+                             f"({seen.get('error')}), metrics "
+                             f"{[f[1] for f in frames]}")
+    tb_events = any(f.startswith("events.out.tfevents")
+                    for f in os.listdir(out))
     expect = ["point_cloud/iteration_20/point_cloud.ply",
               "point_cloud/iteration_40/point_cloud.ply", "cfg_args",
               "cameras.json", "train_log.jsonl", "chkpnt30.ckpt",
@@ -2065,7 +2135,11 @@ def phase_train_cli(work):
     say("train_cli", train_s=f"{seconds:.1f}", exit_code=0,
         iterations=last["iteration"],
         loss=f"{last['loss']:.5f}", points_start=2000,
-        points_end=int(last["num_active"]), artifacts=len(expect))
+        points_end=int(last["num_active"]), artifacts=len(expect),
+        viewer_frames=len(frames),
+        viewer_points=json.dumps([f[1]["#"] for f in frames]),
+        viewer_frame_ms=json.dumps([round(f[2], 1) for f in frames]),
+        tensorboard_events=tb_events)
     return out, scene
 
 
@@ -2142,6 +2216,396 @@ def phase_serve_cli(work, out, scene):
         ssim_test=f"{results['ours_40']['SSIM']:.4f}",
         lpips=results["ours_40"]["LPIPS"],
         segmentation_accuracy=f"{seg_metric['mean_accuracy']:.4f}")
+
+
+def sibr_message(view, proj_full, width, height, fovx, fovy, mode=0,
+                 scaling=1.0, train=True) -> dict:
+    """The camera message a SIBR client sends for a math-convention view
+    and full projection (transposed, with the client's column flips)."""
+    wvt = np.asarray(view, np.float32).T.copy()
+    wvt[:, 1:3] = -wvt[:, 1:3]
+    vpt = np.asarray(proj_full, np.float32).T.copy()
+    vpt[:, 1] = -vpt[:, 1]
+    return {"resolution_x": width, "resolution_y": height, "train": train,
+            "fov_y": fovy, "fov_x": fovx, "z_near": 0.01, "z_far": 100.0,
+            "keep_alive": True, "scaling_modifier": scaling,
+            "view_matrix": wvt.ravel().tolist(),
+            "view_projection_matrix": vpt.ravel().tolist(),
+            "render_mode": mode}
+
+
+class SibrClient:
+    """The client side of the SIBR protocol on a loopback socket."""
+
+    def __init__(self, port, timeout=120.0):
+        import socket
+        deadline = time.time() + timeout
+        while True:
+            try:
+                self.sock = socket.create_connection(("127.0.0.1", port),
+                                                     timeout=timeout)
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.05)
+        n = int.from_bytes(self._read(4), "little")
+        self.items = json.loads(self._read(n).decode())
+
+    def _read(self, n):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = self.sock.recv(min(n - len(buf), 1 << 22))
+            if not chunk:
+                raise ConnectionError("viewer server closed")
+            buf += chunk
+        return bytes(buf)
+
+    def frame(self, msg):
+        """(frame bytes, metrics, round-trip ms) of one camera message."""
+        t0 = time.perf_counter()
+        payload = json.dumps(msg).encode()
+        self.sock.sendall(len(payload).to_bytes(4, "little") + payload)
+        img = self._read(msg["resolution_x"] * msg["resolution_y"] * 3)
+        self._read(int.from_bytes(self._read(4), "little"))   # source path
+        metrics = json.loads(self._read(
+            int.from_bytes(self._read(4), "little")).decode())
+        return img, metrics, (time.perf_counter() - t0) * 1e3
+
+    def close(self):
+        self.sock.close()
+
+
+def phase_viewer(dev, params, state):
+    """The viewers on the serve phase's scene (128 rendered channels lifted
+    to 512 by the seeded decoder), 1216x800: cli.view's serve loop on a
+    NetworkGUI in a thread on a free loopback port; a client asks for each
+    render mode at orbit view 0 (3 frames each) and 2 frames at scaling
+    0.5 (views 1, 2); each frame equals render_net_image of a direct
+    render of the same camera bit for bit. Then the WebViewer: /info and
+    4 /render PNGs, each decoded and equal to the direct render's image.
+    Returns the forward launches of the served frames."""
+    import io
+    import threading
+    import urllib.request
+
+    import torch
+    from PIL import Image
+
+    from feature3dgs_tpu_torch.cli.view import serve
+    from feature3dgs_tpu_torch.core import transforms
+    from feature3dgs_tpu_torch.model.decoder import apply_decoder, init_decoder
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.render import renderer
+    from feature3dgs_tpu_torch.render.modes import (RENDER_ITEMS,
+                                                    render_net_image)
+    from feature3dgs_tpu_torch.viewer.network_gui import (NetworkGUI,
+                                                          camera_from_message,
+                                                          render_frame)
+    from feature3dgs_tpu_torch.viewer.web import WebViewer
+
+    decoder = init_decoder(F_DIM, F_OUT, seed=0, device=dev)
+
+    def render_fn(view, scaling_modifier):
+        out = renderer.render(params, state, view,
+                              scaling_modifier=scaling_modifier)
+        return out._replace(feature=apply_decoder(decoder, out.feature))
+
+    fovx, fovy = 1.2, 0.9
+    msgs = []
+    for mode in range(len(RENDER_ITEMS)):
+        view = orbit_view(0)
+        proj = transforms.projection_matrix(0.01, 100.0, fovx, fovy) @ view
+        msgs += [sibr_message(view, proj, WIDTH, HEIGHT, fovx, fovy,
+                              mode)] * 3
+    for i in (1, 2):
+        view = orbit_view(i)
+        proj = transforms.projection_matrix(0.01, 100.0, fovx, fovy) @ view
+        msgs.append(sibr_message(view, proj, WIDTH, HEIGHT, fovx, fovy, 0,
+                                 scaling=0.5))
+
+    def direct(msg):
+        """The JAX way: render_net_image, then clip * 255 to uint8."""
+        cam = camera_from_message(msg)
+        with torch.inference_mode():
+            view = cam.to_view(dev)
+            out = render_fn(view, cam.scaling_modifier)
+            img = render_net_image({"color": out.color,
+                                    "feature": out.feature,
+                                    "depth": out.depth}, RENDER_ITEMS,
+                                   cam.render_mode, view.proj)
+        return (np.clip(img, 0, 1) * 255).astype(np.uint8).tobytes()
+
+    # warm-up of every mode's path (QR, sort, colormap tables)
+    for m in msgs[::3]:
+        direct(m)
+    gui = NetworkGUI("127.0.0.1", 0)
+    stop = threading.Event()
+    server = threading.Thread(target=serve, args=(
+        gui, render_fn, "smoke", state.num_active, dev, stop), daemon=True)
+    server.start()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_raster.FORWARD_LAUNCHES = 0
+    client = SibrClient(gui.listener.getsockname()[1])
+    got = [client.frame(m) for m in msgs]
+    client.close()
+    launches = cuda_raster.FORWARD_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    stop.set()
+    server.join(timeout=30)
+    gui.close()
+    if client.items != RENDER_ITEMS or launches != len(msgs):
+        raise AssertionError(f"viewer: items {client.items}, {launches} "
+                             f"launches for {len(msgs)} frames")
+    bad = [i for i, (m, (img, metrics, _)) in enumerate(zip(msgs, got))
+           if img != direct(m) or metrics["#"] != N_GAUSS]
+    if bad:
+        raise AssertionError(f"viewer: frames {bad} differ from direct "
+                             "renders")
+
+    # the direct path's own time (render, channel, uint8, one copy)
+    def one_frame(msg):
+        cam = camera_from_message(msg)
+        with torch.inference_mode():
+            return render_frame(render_fn, cam, dev).cpu()
+
+    render_ms, frame_ms = {}, {}
+    for mode, item in enumerate(RENDER_ITEMS):
+        frame_ms[item] = round(statistics.median(
+            g[2] for g in got[3 * mode:3 * mode + 3]), 3)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_frame(msgs[3 * mode])
+            times.append((time.perf_counter() - t0) * 1e3)
+        render_ms[item] = round(statistics.median(times), 3)
+    syncs = blocking_calls(lambda: one_frame(msgs[0]))
+    say("viewer", frames=len(msgs), launches=launches,
+        bit_equal_to_direct=len(msgs), peak_mem_bytes=peak,
+        blocking_calls_rgb_frame=syncs,
+        frame_ms_median=json.dumps(frame_ms).replace(" ", ""),
+        render_ms_median=json.dumps(render_ms).replace(" ", ""),
+        frame_ms_scaling_half=json.dumps([round(g[2], 3)
+                                          for g in got[-2:]]))
+
+    def render_pkg(cam, scaling):
+        with torch.inference_mode():
+            out = render_fn(cam.to_view(dev), scaling)
+        return {"color": out.color, "feature": out.feature,
+                "depth": out.depth}
+
+    web = WebViewer(render_pkg, center=[0, 0, 0], radius=5.0,
+                    n_gaussians=N_GAUSS, feature_dim=F_OUT,
+                    port=0).serve_background()
+    try:
+        base = f"http://127.0.0.1:{web.port}"
+        info = json.loads(urllib.request.urlopen(base + "/info").read())
+        queries = [{"az": a, "el": 0.2, "w": WIDTH, "h": HEIGHT, "mode": m}
+                   for a, m in ((0.3, 0), (0.9, 1), (1.5, 3), (2.1, 5))]
+        web_ms, render_hdr = [], []
+        for q in queries:
+            t0 = time.perf_counter()
+            resp = urllib.request.urlopen(base + "/render?" + "&".join(
+                f"{k}={v}" for k, v in q.items()))
+            png = resp.read()
+            web_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+            render_hdr.append(float(resp.headers["X-Render-Ms"]))
+            got_img = np.asarray(Image.open(io.BytesIO(png)))
+            cam, mode, scaling = web.camera({k: str(v) for k, v in q.items()})
+            pkg = render_pkg(cam, scaling)
+            proj = torch.from_numpy(np.asarray(cam.full_proj)).to(dev)
+            ref = (np.clip(render_net_image(pkg, RENDER_ITEMS, mode, proj),
+                           0, 1) * 255).astype(np.uint8)
+            if got_img.shape != (HEIGHT, WIDTH, 3) or \
+                    not np.array_equal(got_img, ref):
+                raise AssertionError(f"web viewer: /render {q} differs from "
+                                     "the direct render")
+    finally:
+        web.close()
+    if info["n_gaussians"] != N_GAUSS or info["modes"] != RENDER_ITEMS:
+        raise AssertionError(f"web viewer: /info {info}")
+    say("web_viewer", pngs=len(queries), equal_to_direct=len(queries),
+        request_ms=json.dumps(web_ms), render_ms_header=json.dumps(render_hdr))
+    return launches
+
+
+def timed_ms(fn, reps=3) -> float:
+    """Median host milliseconds of fn() with the card synchronized around
+    each call, after one warm-up call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_encoders(dev, params, state):
+    """The teacher encoders at their published widths with seeded weights
+    built on the card (no weights exist here): LSeg ViT-L/16 (encode_image
+    of a 480x360 image, the net's f32 output against the same weights on
+    the CPU), CLIP ViT-B/32 (CLIPConfig()'s defaults, card against CPU),
+    SAM ViT-H (1280 wide, 32 blocks; encode_image timed on the card; a
+    2-block copy at full width held against the CPU), then segment_time's
+    loop on an embedding rendered from the serve scene through a seeded
+    128 -> 256 decoder, and auto_masks on it."""
+    import copy
+    import importlib.metadata
+
+    import torch
+    import torch.nn.functional as F
+    from transformers import (CLIPConfig, CLIPImageProcessor, CLIPModel,
+                              SamConfig, SamImageProcessor, SamModel,
+                              SamProcessor, SamVisionConfig)
+
+    from feature3dgs_tpu_torch.cli.segment_time import time_decoding
+    from feature3dgs_tpu_torch.encoders import (clip_pixel, lseg_net,
+                                                sam_decode, sam_encoder,
+                                                seeded_init_)
+    from feature3dgs_tpu_torch.model.decoder import apply_decoder, init_decoder
+    from feature3dgs_tpu_torch.render import renderer
+
+    bar = 1e-4      # card against CPU, max-normalised
+    rng = np.random.RandomState(0)
+    gen = torch.Generator(dev).manual_seed(0)
+    results = {"transformers": importlib.metadata.version("transformers")}
+
+    # LSeg ViT-L/16 + DPT head
+    net = lseg_net.build_lseg(dev, gen)
+    n_params = sum(p.numel() for p in net.parameters())
+    img = rng.rand(360, 480, 3).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lseg_ms = timed_ms(lambda: lseg_net.encode_image(img, net))
+    lseg_peak = torch.cuda.max_memory_allocated()
+    # card against CPU at 160x128 (the whole net; the CPU forward at
+    # 480x352 alone takes seconds)
+    fmap = lseg_net.encode_image(img, net)
+    small_img = img[:128, :160]
+    card = lseg_net.encode_features(small_img, net)
+    cpu_net = copy.deepcopy(net).cpu()
+    del net
+    lseg_err = norm_err(card.cpu(), lseg_net.encode_features(small_img,
+                                                             cpu_net))
+    del cpu_net
+    if tuple(fmap.shape) != (512, 360, 480) or fmap.dtype != torch.float16 \
+            or not lseg_err <= bar:
+        raise AssertionError(f"encoders: LSeg {tuple(fmap.shape)} "
+                             f"{fmap.dtype}, card vs CPU {lseg_err}")
+    say("encoders_lseg", params=n_params, image="480x360", input="480x352",
+        encode_ms_median=f"{lseg_ms:.3f}", peak_mem_bytes=lseg_peak,
+        card_vs_cpu_160x128_max_norm_err=lseg_err, bar=bar)
+
+    # CLIP ViT-B/32 (MaskCLIP pixel features)
+    with torch.device(dev):
+        clip_model = CLIPModel(CLIPConfig())
+    seeded_init_(clip_model, gen).eval()
+    clip = (clip_model, CLIPImageProcessor())
+    image8 = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
+    clip_ms = timed_ms(lambda: clip_pixel.encode_image(image8, (240, 320),
+                                                       clip=clip))
+    card = clip_pixel.encode_image(image8, (240, 320), clip=clip)
+    cpu_clip = (copy.deepcopy(clip_model).cpu(), clip[1])
+    clip_err = norm_err(card.cpu(), clip_pixel.encode_image(
+        image8, (240, 320), clip=cpu_clip))
+    del clip, cpu_clip, clip_model
+    if tuple(card.shape) != (512, 240, 320) or not clip_err <= bar:
+        raise AssertionError(f"encoders: CLIP {tuple(card.shape)}, card vs "
+                             f"CPU {clip_err}")
+    say("encoders_clip", config="CLIPConfig()", encode_ms_median=
+        f"{clip_ms:.3f}", card_vs_cpu_max_norm_err=clip_err, bar=bar)
+
+    # SAM ViT-H: a 2-block copy at full width against the CPU first
+    def sam_model(layers, global_at):
+        cfg = SamConfig(vision_config=SamVisionConfig(
+            hidden_size=1280, num_hidden_layers=layers,
+            num_attention_heads=16, global_attn_indexes=global_at).to_dict())
+        with torch.device(dev):
+            model = SamModel(cfg)
+        return seeded_init_(model, gen).eval()
+
+    proc = SamProcessor(SamImageProcessor())
+    small = (sam_model(2, [1]), proc)
+    emb_card = sam_encoder.encode_image(image8, small)
+    cpu_small = (copy.deepcopy(small[0]).cpu(), proc)
+    emb_err = norm_err(emb_card.cpu(),
+                       sam_encoder.encode_image(image8, cpu_small))
+    pts = [[200.0, 150.0], [500.0, 300.0]]
+    lg_card, iou_card = sam_decode.decode_masks(
+        emb_card, (480, 640), points=pts, return_logits=True, sam=small)
+    lg_cpu, iou_cpu = sam_decode.decode_masks(
+        emb_card.cpu(), (480, 640), points=pts, return_logits=True,
+        sam=cpu_small)
+    dec_err = max(norm_err(lg_card.cpu(), lg_cpu),
+                  norm_err(iou_card.cpu(), iou_cpu))
+    del small, cpu_small
+    if not (emb_err <= bar and dec_err <= bar):
+        raise AssertionError(f"encoders: SAM 2-block card vs CPU: embedding "
+                             f"{emb_err}, decoder {dec_err}")
+    sam = (sam_model(32, [7, 15, 23, 31]), proc)
+    n_params = sum(p.numel() for p in sam[0].parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sam_ms = timed_ms(lambda: sam_encoder.encode_image(image8, sam))
+    sam_peak = torch.cuda.max_memory_allocated()
+    emb = sam_encoder.encode_image(image8, sam)
+    if tuple(emb.shape) != (256, 48, 64) or \
+            not bool(torch.isfinite(emb).all()):
+        raise AssertionError(f"encoders: SAM ViT-H {tuple(emb.shape)}")
+    say("encoders_sam", params=n_params, width=1280, blocks=32,
+        global_attn="7,15,23,31", image="640x480",
+        encode_ms_median=f"{sam_ms:.3f}", peak_mem_bytes=sam_peak,
+        card_vs_cpu_2block_embedding_max_norm_err=emb_err,
+        card_vs_cpu_2block_decoder_max_norm_err=dec_err, bar=bar,
+        transformers=results["transformers"])
+
+    # segment_time: an embedding rendered from the serve scene
+    decoder = init_decoder(F_DIM, 256, seed=1, device=dev)
+    cam = camera(orbit_view(0), WIDTH, HEIGHT, math.tan(0.6), math.tan(0.45),
+                 dev)
+    with torch.inference_mode():
+        out = renderer.render(params, state, cam)
+        rendered = apply_decoder(decoder, out.feature).permute(2, 0, 1)
+        grid = (round(64 * HEIGHT / WIDTH), 64)
+        emb = F.interpolate(rendered[None], size=grid, mode="bilinear",
+                            align_corners=False)[0].clone()
+        image = (torch.clamp(out.color, 0, 1) * 255).to(torch.uint8
+                                                         ).cpu().numpy()
+    timing = time_decoding(sam, [emb], [image], points=8)
+    if timing["masks_rendered"] != 24 or timing["masks_encoder"] != 24:
+        raise AssertionError(f"encoders: segment_time {timing}")
+    say("segment_time", embedding=f"256x{grid[0]}x{grid[1]}",
+        image=f"{WIDTH}x{HEIGHT}", points=8,
+        masks_rendered=timing["masks_rendered"],
+        masks_per_s_rendered=f"{timing['masks_per_s_rendered']:.2f}",
+        masks_encoder=timing["masks_encoder"],
+        masks_per_s_encoder=f"{timing['masks_per_s_encoder']:.2f}",
+        ratio=f"{timing['slowdown']:.2f}")
+
+    auto = {}
+    for name, kw in (("default", {}),
+                     ("unfiltered", dict(pred_iou_thresh=-1e9,
+                                         stability_thresh=0.0))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = sam_decode.auto_masks(emb, (HEIGHT, WIDTH), points_per_side=16,
+                                     sam=sam, **kw)
+        torch.cuda.synchronize()
+        auto[name] = (len(recs), (time.perf_counter() - t0) * 1e3)
+        if recs and (recs[0]["segmentation"].shape != (HEIGHT, WIDTH)
+                     or recs[0]["segmentation"].device.type != "cuda"):
+            raise AssertionError("encoders: auto_masks records")
+    say("auto_masks", points_per_side=16, note="filtering depends on the "
+        "random weights", masks_default=auto["default"][0],
+        ms_default=f"{auto['default'][1]:.1f}",
+        masks_unfiltered=auto["unfiltered"][0],
+        ms_unfiltered=f"{auto['unfiltered'][1]:.1f}")
 
 
 def write_profile(out_dir, name, fn) -> float:
@@ -2224,6 +2688,11 @@ def main(argv=None) -> int:
     if want("kernel_bwd_slice"):
         at_batch4 = phase_kernel_bwd_slice(dev, params, state, gt_image,
                                            gt_feature)
+    viewer_launches = 0
+    if want("viewer"):
+        viewer_launches = phase_viewer(dev, params, state)
+    if want("encoders"):
+        phase_encoders(dev, params, state)
     if want("kernel_alpha_small"):
         phase_kernel_alpha_small(dev)
     if want("kernel_alpha_full"):
@@ -2263,7 +2732,8 @@ def main(argv=None) -> int:
         dict(name="raster_forward", route="cuda",
              source=src + "raster_forward.cu", replaces=tpu + "192",
              launches=serve_launches + batch_launches[0] + train_fwd
-             + loop[0] + batch_launches_train[0] + shard_launches[0], **full,
+             + loop[0] + batch_launches_train[0] + shard_launches[0]
+             + viewer_launches, **full,
              library_ms=None,
              **at_loop[("fwd", False)], **at_batch[False]),
         dict(name="raster_backward", route="cuda",

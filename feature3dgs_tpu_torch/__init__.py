@@ -32,8 +32,11 @@ find the counterpart):
   tasks/     segmentation, ADE20K labels, CLIP text embeddings
   metrics/   LPIPS (VGG16)
   train/     losses, train_step and the Trainer, checkpoints
-  cli/       train, render, segmentation, segmentation_metric, metrics and
-             full_eval (python -m feature3dgs_tpu_torch.cli.<name>)
+  viewer/    the SIBR remote viewer's protocol, the browser viewer
+  encoders/  LSeg, CLIP pixel features, SAM encoding and mask decoding
+  cli/       train, render, segmentation, segmentation_metric, metrics,
+             full_eval, view, web_view, videos, encode_lseg and
+             segment_time (python -m feature3dgs_tpu_torch.cli.<name>)
 """
 from __future__ import annotations
 

@@ -38,9 +38,19 @@ puts the H hosts on the data axis and each host's C cards on the tile axis
 (``MultiHostTrainer``), and each rank loads the pixels and teacher maps of
 its host's camera stripe only (the test split on rank 0 only). Every rank
 joins the gather of a row-sharded state before rank 0 writes it, so the
-checkpoints and PLY files are those of a replicated run. The network viewer
-and TensorBoard are not ported: the CLI always behaves as with
-``--disable_viewer``.
+checkpoints and PLY files are those of a replicated run.
+
+Unless ``--disable_viewer`` is given, rank 0 listens for the SIBR remote
+viewer on ``--ip``/``--port`` (``viewer/network_gui.py``) and serves it at
+sync iterations only, after the host has read that step's metrics, so
+steps between them still read nothing from the device; a client that asks
+not to train holds the loop there, frame after frame, as in the original.
+The viewer is off under ``--distributed`` (as in ``scripts/train.py``) and
+when ``--shard_gaussians`` spreads the rows over several ranks (rank 0
+alone holds no whole model). TensorBoard scalars (losses, iteration time,
+points; test and train L1 / PSNR and the opacity histogram at
+``--test_iterations``) go to the output folder where
+``torch.utils.tensorboard`` imports.
 """
 from __future__ import annotations
 
@@ -84,8 +94,7 @@ def build_parser() -> ArgumentParser:
                         help="write a torch.profiler table and chrome trace "
                              "of iterations 20-30 into DIR")
     parser.add_argument("--disable_viewer", action="store_true",
-                        help="accepted; the network viewer is not ported, so "
-                             "it is always off")
+                        help="do not serve the SIBR remote viewer")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
     parser.add_argument("--gt_cache_mb", type=int, default=0,
@@ -209,8 +218,6 @@ def main(argv=None) -> int:
     if is_main:
         os.makedirs(mcfg.model_path, exist_ok=True)
     log(f"Output folder: {mcfg.model_path}")
-    log("[viewer] the network viewer and TensorBoard are not ported: "
-        "running as with --disable_viewer")
 
     if multihost:
         # each host reads its own camera stripe's pixels and teacher maps
@@ -266,6 +273,16 @@ def main(argv=None) -> int:
         trainer.restore_state(ts)
         trainer.iteration = it
         log(f"Restored checkpoint at iteration {it}")
+
+    gui = _open_viewer(args, multihost, n_proc) if is_main else None
+    # TensorBoard, as the original's training_report (train.py:203-239)
+    tb = None
+    if is_main:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            tb = SummaryWriter(mcfg.model_path)
+        except Exception as e:
+            print(f"tensorboard logging disabled ({e})")
 
     stop = {"sig": None}
     ema_loss = 0.0
@@ -325,6 +342,15 @@ def main(argv=None) -> int:
                 log(f"[{it}/{ocfg.iterations}] loss={ema_loss:.5f} "
                     f"psnr={metrics['psnr']:.2f} "
                     f"pts={int(metrics['num_active'])} ({ms_it:.0f} ms/it)")
+            if tb is not None:
+                tb.add_scalar("train_loss_patches/l1_loss",
+                              metrics.get("l1", 0.0), it)
+                tb.add_scalar("train_loss_patches/l1_feature_loss",
+                              metrics.get("l1_feature", 0.0), it)
+                tb.add_scalar("train_loss_patches/total_loss",
+                              metrics["loss"], it)
+                tb.add_scalar("iter_time", ms_it, it)
+                tb.add_scalar("total_points", int(metrics["num_active"]), it)
             # the log rides the existing sync points, about every 50
             # iterations
             if it - last_logged_it >= 50 or it >= ocfg.iterations:
@@ -340,7 +366,7 @@ def main(argv=None) -> int:
             save = any(i in args.save_iterations for i in span)
             state = trainer.full_state() if report or save else None
             if is_main and report:
-                _report(trainer, state, scene, it)
+                _report(trainer, state, scene, it, tb)
             if is_main and save:
                 print(f"\n[ITER {it}] Saving Gaussians")
                 ckpt.save_scene_ply(mcfg.model_path, it, state.params,
@@ -359,13 +385,64 @@ def main(argv=None) -> int:
                 if is_main:
                     print(f"\n[ITER {it}] Saving Checkpoint")
                     ckpt.save_checkpoint(mcfg.model_path, it, state)
+            if gui is not None:
+                _serve_gui(gui, trainer, scene, ema_loss)
 
+    if gui is not None:
+        gui.close()
+    if tb is not None:
+        tb.close()
     if dist.is_initialized():
         dist.destroy_process_group()
     if stop_now:
         return 0
     log("\nTraining complete.")
     return 0
+
+
+def _open_viewer(args, multihost: bool, n_proc: int):
+    """The SIBR viewer's listener, or None (off, or the port is taken)."""
+    if args.disable_viewer:
+        return None
+    if multihost or (args.shard_gaussians and n_proc > 1):
+        print("viewer disabled (the Gaussians are not whole on one rank)")
+        return None
+    from feature3dgs_tpu_torch.viewer.network_gui import NetworkGUI
+    try:
+        return NetworkGUI(args.ip, args.port)
+    except OSError as e:
+        print(f"viewer disabled ({e})")
+        return None
+
+
+@torch.no_grad()
+def _serve_gui(gui, trainer, scene, ema_loss: float):
+    """At a sync iteration: accept a waiting viewer, then answer its camera
+    messages until one asks to train (the original train.py:155-177). A
+    dropped client is disconnected and training goes on."""
+    from feature3dgs_tpu_torch.render import renderer
+    from feature3dgs_tpu_torch.render.modes import RENDER_ITEMS
+    from feature3dgs_tpu_torch.viewer.network_gui import render_frame
+    if gui.conn is None:
+        gui.try_connect(list(RENDER_ITEMS))
+    ts = trainer.ts
+
+    def render_fn(view, scaling_modifier):
+        return renderer.render(ts.params, ts.gstate, view, bg=trainer.bg,
+                               config=trainer.rcfg,
+                               scaling_modifier=scaling_modifier)
+
+    while gui.conn is not None:
+        try:
+            cam = gui.receive()
+            frame = (render_frame(render_fn, cam, trainer.device)
+                     if cam is not None else None)
+            gui.send(frame, scene.source_path,
+                     {"#": ts.gstate.num_active, "loss": ema_loss})
+            if cam is None or cam.do_training:
+                break
+        except Exception:
+            gui.disconnect()
 
 
 def _agree(flag: bool, device) -> bool:
@@ -399,10 +476,11 @@ def _stop_profile(prof, out_dir: str, device):
 
 
 @torch.no_grad()
-def _report(trainer, state, scene, iteration: int):
-    """The original training_report (train.py:203-239), to stdout: L1 and
-    PSNR of the whole ``state`` on the test cameras and on 5 fixed train
-    cameras whose pixels this process holds."""
+def _report(trainer, state, scene, iteration: int, tb=None):
+    """The original training_report (train.py:203-239): L1 and PSNR of the
+    whole ``state`` on the test cameras and on 5 fixed train cameras whose
+    pixels this process holds, to stdout and TensorBoard, with the opacity
+    histogram and the point count."""
     from feature3dgs_tpu_torch.render import renderer
     from feature3dgs_tpu_torch.train import losses as L
     params, gstate = state.params, state.gstate
@@ -425,6 +503,14 @@ def _report(trainer, state, scene, iteration: int):
         l1, psnr = (totals / len(cams)).tolist()
         print(f"\n[ITER {iteration}] Evaluating {name}: "
               f"L1 {l1:.5f} PSNR {psnr:.2f}")
+        if tb is not None:
+            tb.add_scalar(f"{name}/loss_viewpoint - l1_loss", l1, iteration)
+            tb.add_scalar(f"{name}/loss_viewpoint - psnr", psnr, iteration)
+    if tb is not None:
+        op = torch.sigmoid(params.opacity[:, 0])[gstate.alive]
+        tb.add_histogram("scene/opacity_histogram", op.cpu().numpy(),
+                         iteration)
+        tb.add_scalar("total_points", gstate.num_active, iteration)
 
 
 if __name__ == "__main__":

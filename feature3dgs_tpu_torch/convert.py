@@ -88,3 +88,13 @@ def camera_from_numpy(view, proj, campos, tan_fovx, tan_fovy, width: int,
         tan_fovx=_f32(np.float32(tan_fovx), device),
         tan_fovy=_f32(np.float32(tan_fovy), device),
         width=int(width), height=int(height))
+
+
+def encoder_state_from_numpy(arrays: dict[str, np.ndarray], device=None
+                             ) -> dict[str, torch.Tensor]:
+    """A state dict on ``default_device(device)`` from numpy arrays by key,
+    dtypes kept (the encoders' keys are the same in both packages; each
+    port encoder loads it with ``strict=True``)."""
+    device = default_device(device)
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in arrays.items()}

@@ -7,11 +7,15 @@ Port of ``feature3dgs_tpu/render/modes.py``. ``colormap`` maps through a
 256-entry table kept in this source, so rendering needs no matplotlib:
 "jet" is built from its segment table as matplotlib builds it, and "turbo"
 (the JAX package's default colormap) is matplotlib's own 256 entries.
-``colormap`` and ``feature_pca_vis`` are numpy; ``gradient_map``,
-``depth_to_points`` and ``depth_to_normal`` take and return tensors on any
-device; ``render_net_image`` returns an HW3 float32 numpy image.
+Every function runs on the device of the tensors it is given:
+``net_image`` is a viewer frame on the card, and ``to_uint8`` its bytes,
+so a viewer copies one uint8 image to the host a frame. ``colormap`` and
+``feature_pca_vis`` also take numpy and then return numpy;
+``render_net_image`` returns ``net_image`` as numpy.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -181,38 +185,68 @@ _COLORMAPS = {
 }
 
 
-def colormap(x, cmap: str = "jet") -> np.ndarray:
-    """Min-max normalize, then map through a 256-entry colormap; returns
-    HW3 float32 RGB."""
+def colormap(x, cmap: str = "jet"):
+    """Min-max normalize, then map through a 256-entry colormap: HW3 float32
+    RGB, a tensor on ``x``'s device for a tensor, numpy for anything else."""
     if cmap not in _COLORMAPS:
         raise ValueError(f"colormap {cmap!r} not available: {sorted(_COLORMAPS)}")
-    colors = _COLORMAPS[cmap]
-    x = np.asarray(x).squeeze()
-    x = (x - x.min()) / max(float(x.max() - x.min()), 1e-12)
-    idx = np.clip(np.round(x * (len(colors) - 1)).astype(int), 0,
-                  len(colors) - 1)
-    return colors[idx].astype(np.float32)
+    if not isinstance(x, torch.Tensor):
+        return colormap(torch.from_numpy(np.asarray(x)), cmap).numpy()
+    colors = torch.from_numpy(_COLORMAPS[cmap].astype(np.float32)).to(x.device)
+    x = x.squeeze()
+    x = (x - x.min()) / torch.clamp_min(x.max() - x.min(), 1e-12)
+    idx = torch.clamp(torch.round(x * (len(colors) - 1)).long(), 0,
+                      len(colors) - 1)
+    return colors[idx]
 
 
-def feature_pca_vis(feature, stride: int = 3) -> np.ndarray:
+def _percentile(v: torch.Tensor, q: float) -> torch.Tensor:
+    """np.percentile(v, q) with its default linear method, the same
+    floating-point steps (numpy's _lerp), on ``v``'s device."""
+    n = v.numel()
+    s = torch.sort(v.reshape(-1)).values
+    quantile = q / 100
+    index = n * quantile + (1 + quantile * (1 - 1 - 1)) - 1
+    lo = math.floor(index)
+    t = index - lo
+    a, b = s[max(0, min(lo, n - 1))], s[max(0, min(lo + 1, n - 1))]
+    diff = b - a
+    return b - diff * (1 - t) if t >= 0.5 else a + diff * t
+
+
+def _principal_axes(centered: torch.Tensor, k: int) -> torch.Tensor:
+    """numpy's SVD components (signs included) of a tall float64 matrix:
+    LAPACK's gesdd bidiagonalises the R factor of a QR when rows >= 11/6 of
+    the columns, so the QR runs on the device and only R [C,C] (or a short
+    matrix itself) goes to numpy."""
+    m, c = centered.shape
+    small = centered if m < int(min(m, c) * 11.0 / 6.0) else \
+        torch.linalg.qr(centered, mode="r").R
+    _, _, vt = np.linalg.svd(small.cpu().numpy(), full_matrices=False)
+    return torch.from_numpy(np.ascontiguousarray(vt[:k])).to(centered.device)
+
+
+def feature_pca_vis(feature, stride: int = 3):
     """3-component PCA visualization of an HWC feature map: L2-normalize
     channels, PCA on every ``stride``-th pixel, 1/99-percentile contrast
-    stretch."""
-    f = np.asarray(feature, np.float64)
-    h, w, c = f.shape
-    flat = f.reshape(-1, c)
-    norm = np.linalg.norm(flat, axis=1, keepdims=True)
-    flat = flat / np.maximum(norm, 1e-12)
+    stretch, in float64. A tensor gives an HW3 float32 tensor on its device
+    (only the fit's [C,C] factor visits the host), anything else numpy."""
+    if not isinstance(feature, torch.Tensor):
+        return feature_pca_vis(torch.from_numpy(np.asarray(feature)),
+                               stride).numpy()
+    h, w, c = feature.shape
+    flat = feature.reshape(-1, c).double()
+    norm = torch.linalg.norm(flat, dim=1, keepdim=True)
+    flat = flat / torch.clamp_min(norm, 1e-12)
     samples = flat[::stride]
     mean = samples.mean(0)
     centered = samples - mean
-    _, _, vt = np.linalg.svd(centered, full_matrices=False)
-    comps = vt[:3]
+    comps = _principal_axes(centered, 3)
     transformed = centered @ comps.T
-    q1, q99 = np.percentile(transformed, [1, 99])
+    q1, q99 = _percentile(transformed, 1), _percentile(transformed, 99)
     vis = (flat - mean) @ comps.T
-    vis = (vis - q1) / max(q99 - q1, 1e-12)
-    return np.clip(vis, 0.0, 1.0).reshape(h, w, 3).astype(np.float32)
+    vis = (vis - q1) / torch.clamp_min(q99 - q1, 1e-12)
+    return torch.clamp(vis, 0.0, 1.0).reshape(h, w, 3).float()
 
 
 def gradient_map(image: torch.Tensor) -> torch.Tensor:
@@ -265,23 +299,35 @@ def depth_to_normal(depth: torch.Tensor, proj_full: torch.Tensor
     return n / (torch.linalg.norm(n, dim=-1, keepdim=True) + 1e-8)
 
 
-def render_net_image(render_pkg: dict, render_items, render_mode: int,
-                     proj_full) -> np.ndarray:
-    """One viewer channel, post-processed (image_utils.py:141-161).
-    ``render_pkg`` holds HWC tensors: color [H,W,3], feature [H,W,F],
-    depth [H,W]. Returns an HW3 float32 numpy image in [0, 1]."""
+def net_image(render_pkg: dict, render_items, render_mode: int,
+              proj_full: torch.Tensor) -> torch.Tensor:
+    """One viewer channel, post-processed (image_utils.py:141-161), on the
+    render's device. ``render_pkg`` holds HWC tensors: color [H,W,3],
+    feature [H,W,F], depth [H,W]. Returns an HW3 float32 tensor in [0, 1]."""
     output = render_items[render_mode].lower()
     if output == "depth":
-        return colormap(render_pkg["depth"].cpu().numpy(), "turbo")
+        return colormap(render_pkg["depth"], "turbo")
     if output == "edge":
-        return colormap(gradient_map(render_pkg["color"]).cpu().numpy(),
-                        "turbo")
+        return colormap(gradient_map(render_pkg["color"]), "turbo")
     if output == "normal":
-        n = depth_to_normal(render_pkg["depth"], proj_full)
-        return ((n + 1) / 2).cpu().numpy()
+        return (depth_to_normal(render_pkg["depth"], proj_full) + 1) / 2
     if output == "curvature":
         n = (depth_to_normal(render_pkg["depth"], proj_full) + 1) / 2
-        return colormap(gradient_map(n).cpu().numpy(), "turbo")
+        return colormap(gradient_map(n), "turbo")
     if output == "feature map":
-        return feature_pca_vis(render_pkg["feature"].cpu().numpy())
-    return render_pkg["color"].cpu().numpy()
+        return feature_pca_vis(render_pkg["feature"])
+    return render_pkg["color"]
+
+
+def to_uint8(image: torch.Tensor) -> torch.Tensor:
+    """The bytes a viewer sends: clip to [0, 1], scale by 255, truncate
+    (numpy's ``(np.clip(x, 0, 1) * 255).astype(np.uint8)``), on the image's
+    device."""
+    return (torch.clamp(image, 0, 1) * 255).to(torch.uint8)
+
+
+def render_net_image(render_pkg: dict, render_items, render_mode: int,
+                     proj_full) -> np.ndarray:
+    """``net_image`` as an HW3 float32 numpy image."""
+    return net_image(render_pkg, render_items, render_mode, proj_full
+                     ).cpu().numpy()

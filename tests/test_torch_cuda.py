@@ -890,3 +890,48 @@ def test_row_sharded_trainer_on_the_card(dev):
     assert [r["iteration"] for r in tr.densify_log] == [6, 12]
     assert tr.full_state().params.capacity == tr.capacity
     assert tr.full_state().params.xyz.device.type == dev.type
+
+
+def test_viewer_channels_on_the_card_match_the_cpu(dev):
+    """net_image of each render mode on the card against the same render
+    package on the CPU: RGB, Normal and Feature Map (the float64 PCA with
+    the fit's R factor through numpy) within 1e-5; the colormapped modes
+    differ on fewer than 1% of the pixels (a float move at a table bin
+    edge)."""
+    from feature3dgs_tpu_torch.core import transforms
+    from feature3dgs_tpu_torch.render.modes import RENDER_ITEMS, net_image
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:48, 0:64]
+    pkg = {"color": rng.rand(48, 64, 3), "feature": rng.randn(48, 64, 16),
+           "depth": 3 + 0.5 * np.sin(xx / 5) + 0.3 * np.cos(yy / 4)}
+    pkg = {k: torch.from_numpy(v.astype(np.float32)) for k, v in pkg.items()}
+    view = transforms.world_to_view(np.eye(3), np.array([0.0, 0.0, 4.0]))
+    proj = torch.from_numpy((transforms.projection_matrix(
+        0.01, 100.0, 1.0, 0.8) @ view).astype(np.float32))
+    for mode, item in enumerate(RENDER_ITEMS):
+        cpu = net_image(pkg, RENDER_ITEMS, mode, proj)
+        card = net_image({k: v.to(dev) for k, v in pkg.items()},
+                         RENDER_ITEMS, mode, proj.to(dev))
+        assert card.device.type == dev.type and card.shape == (48, 64, 3)
+        diff = (card.cpu() - cpu).abs().amax(-1)
+        diff[-1, -1] = 0        # the corner normal: rounding noise
+        if item in ("Depth", "Edge", "Curvature"):
+            assert float((diff > 0).float().mean()) < 0.01, item
+        else:
+            assert float(diff.max()) <= 1e-5, item
+
+
+def test_box_nms_and_mask_boxes_on_the_card(dev):
+    """The AMG's device helpers on the card decide as on the CPU."""
+    from feature3dgs_tpu_torch.encoders import sam_decode as sd
+    rng = np.random.RandomState(1)
+    xy = rng.uniform(0, 80, (300, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(2, 30, (300, 2))], 1))
+    scores = rng.choice([0.2, 0.5, 0.9], 300)
+    for thresh in (0.2, 0.5, 0.8):
+        assert torch.equal(sd.box_nms(boxes.to(dev), scores, thresh).cpu(),
+                           sd.box_nms(boxes, scores, thresh))
+    masks = torch.from_numpy(rng.rand(20, 40, 50) > 0.98)
+    assert torch.equal(sd.batched_mask_to_box(masks.to(dev)).cpu(),
+                       sd.batched_mask_to_box(masks))

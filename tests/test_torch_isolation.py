@@ -184,6 +184,17 @@ def _call_entry_point(name, tmp_path, **kw):
             argv += ["--distributed", "--mesh", "1x1", "--shard_gaussians",
                      "--shard_instances"]
         return train.main(argv + (["--device", kw["device"]] if kw else []))
+    if name == "build_lseg":
+        from feature3dgs_tpu_torch.encoders.lseg_net import build_lseg
+        return build_lseg(VIT_DIM=8, VIT_DEPTH=1, VIT_HEADS=2, PATCH=8,
+                          IMG_SIZE=16, HOOKS=(0, 0, 0, 0),
+                          REASSEMBLE=(4, 4, 4, 4), FEATURES=4, OUT_C=4, **kw)
+    if name == "encoder_state_from_numpy":
+        return convert.encoder_state_from_numpy({"w": eye}, **kw)
+    if name == "ViewerCamera.to_view":
+        from feature3dgs_tpu_torch.viewer.network_gui import ViewerCamera
+        return ViewerCamera(8, 6, 1.0, 0.8, 0.01, 100.0, eye, eye, True,
+                            True, 1.0, 0).to_view(**kw)
     if name == "load_lpips_weights":
         from feature3dgs_tpu_torch.metrics.lpips import load_lpips_weights
         return load_lpips_weights(str(tmp_path / "missing.npz"), **kw)
@@ -201,7 +212,11 @@ def _call_entry_point(name, tmp_path, **kw):
                     "--student_dir", missing, "--teacher_dir", missing,
                     "--label_src", "a,b", "--text_features", missing + ".npy"],
                 "cli.metrics.main": ["-m", missing],
-                "cli.full_eval.main": ["--output_path", missing]}[name]
+                "cli.full_eval.main": ["--output_path", missing],
+                "cli.view.main": ["-m", missing],
+                "cli.web_view.main": ["-m", missing],
+                "cli.encode_lseg.main": ["--input", missing,
+                                         "--outdir", missing]}[name]
         return module.main(argv + (["--device", kw["device"]] if kw else []))
     assert name == "camera_from_numpy"
     return convert.camera_from_numpy(eye, eye, eye[0, :3], 0.5, 0.4, 8, 6,
@@ -218,7 +233,9 @@ ENTRY_POINTS = ["load_gaussians_ply", "load_decoder_checkpoint",
                 "load_lpips_weights", "cli.train.main",
                 "cli.train.main.sharded", "cli.render.main",
                 "cli.segmentation.main", "cli.segmentation_metric.main",
-                "cli.metrics.main", "cli.full_eval.main"]
+                "cli.metrics.main", "cli.full_eval.main", "build_lseg",
+                "encoder_state_from_numpy", "ViewerCamera.to_view",
+                "cli.view.main", "cli.web_view.main", "cli.encode_lseg.main"]
 # the device is resolved first, then these fail on their missing input
 NEEDS_A_FILE = {"load_decoder_checkpoint": FileNotFoundError,
                 "load_checkpoint": FileNotFoundError,
@@ -226,7 +243,11 @@ NEEDS_A_FILE = {"load_decoder_checkpoint": FileNotFoundError,
                 "cli.train.main.sharded": ValueError,
                 "cli.render.main": FileNotFoundError,
                 "cli.segmentation.main": FileNotFoundError,
-                "cli.segmentation_metric.main": FileNotFoundError}
+                "cli.segmentation_metric.main": FileNotFoundError,
+                "cli.view.main": FileNotFoundError,
+                "cli.web_view.main": FileNotFoundError,
+                # no LSEG_WEIGHTS and no --fallback_clip
+                "cli.encode_lseg.main": SystemExit}
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

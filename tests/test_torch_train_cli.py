@@ -26,9 +26,10 @@ from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-SMALL = ["--device", "cpu", "--tile_size", "16", "--chunk", "16",
-         "--densify_from_iter", "3", "--densification_interval", "4",
-         "--opacity_reset_interval", "10", "--densify_grad_threshold", "1e-7"]
+SMALL = ["--device", "cpu", "--disable_viewer", "--tile_size", "16",
+         "--chunk", "16", "--densify_from_iter", "3",
+         "--densification_interval", "4", "--opacity_reset_interval", "10",
+         "--densify_grad_threshold", "1e-7"]
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +61,7 @@ def test_train_cli_writes_the_artifact_tree(scene_dir, tmp_path, capsys):
         "--test_iterations", "12", "--sync_every", "4", *SMALL])
     assert rc == 0
     text = capsys.readouterr().out
-    assert "running as with --disable_viewer" in text
+    assert "not ported" not in text and "viewer disabled" not in text
     assert "[ITER 12] Evaluating train" in text and "Training complete." in text
     assert "[12/12]" in text and "[6/12]" not in text   # sync_every 4
     for rel in ("cfg_args", "cameras.json", "train_log.jsonl", "chkpnt8.ckpt",

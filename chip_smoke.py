@@ -5,11 +5,12 @@
 
 Phases, one line each; any failure raises and exits non-zero:
   build        nvcc-builds the CUDA kernels from this checkout's sources
-               (one nvcc per source, in parallel); ptxas' registers and
-               spills per instantiation, and for the instantiations the
-               main path launches (512-pixel tiles, F = 128, both modes)
-               registers, local bytes, resident blocks an SM and the launch
-               plan; whether ncu is installed.
+               (one nvcc per source, in parallel) and, beside them, with
+               g++ the native host helpers (native/src/f3dgs_native.cc);
+               ptxas' registers and spills per instantiation, and for the
+               instantiations the main path launches (512-pixel tiles,
+               F = 128, both modes) registers, local bytes, resident blocks
+               an SM and the launch plan; whether ncu is installed.
   kernel_small the forward compositing kernel against its plain PyTorch
                version on the card at the test scenes (16x16 tiles,
                F = 4 and 128, boosted opacities): 1e-5 absolute on color,
@@ -86,6 +87,29 @@ Phases, one line each; any failure raises and exits non-zero:
                rows at 1e-3 (against the exact mode: per-Gaussian sums, on
                all but 0.1% of the Gaussians); ms of each kernel (20 launches), the bytes bound,
                n_contrib differences, gradient error max-normalised.
+  parity       the parity CLI's scene (1,000 Gaussians, 208x160, SH degree
+               3) at F = 8 and at F = 128: the CUDA route (one forward and
+               one backward launch) in the exact and alpha_matmul modes
+               against the per-pixel oracle (ops/oracle.py) on the card,
+               forward outputs and the loss's gradients with respect to
+               means3d, opacity and features, at the JAX package's oracle
+               bars (tests/test_rasterize.py:72-81: 99.5% of the values
+               within 2e-5, 1e-4 for the alpha_matmul forward, the worst
+               within 0.02, depth 0.2; gradients max-normalised 5e-4 and
+               0.05); each comparison's worst and 99.5% values, the share
+               of pixels (or Gaussians) past the tight bar, the oracle's
+               own seconds. python -m feature3dgs_tpu_torch.cli.parity_check
+               starts as a subprocess with the phase and runs beside it and
+               the train CLI (it runs after train_loop; parity_cli reads
+               it after train_cli): exit 0, cuda-vs-plain and
+               plain-vs-oracle lines, all_pass on gpu.
+  setup        scene setup's host helpers at 1,000,000 points: a
+               points3D.bin (tracks of 4 entries) written from one numpy
+               structured array, read by data/colmap.py's reader (the
+               native scanner) bit-equal to what was written; the native
+               3-NN (ops/knn.py, one thread) against scipy's cKDTree (all
+               cores) at rtol 1e-5 / atol 1e-7; the read and both 3-NN
+               seconds.
   train_loop   the host loop at full width: a SceneData in memory (the
                scene above as a point cloud, the 8 orbit cameras, a U(0,1)
                image and an fp16 608x400x128 teacher each) through Trainer
@@ -262,20 +286,14 @@ def camera(view, width, height, tan_x, tan_y, dev):
 
 
 def small_scene(n, f_dim, seed, boost, dev):
-    """tests/utils.py's random_gaussians (numpy draws in the same order) and
-    make_camera, at SH degree 2."""
+    """tests/utils.py's random_gaussians (data/synthetic.py's copy: numpy
+    draws in the same order) with boosted opacities, and make_camera's
+    view, at SH degree 2."""
     import torch
     from feature3dgs_tpu_torch.core import transforms
-    rng = np.random.RandomState(seed)
-    q = rng.randn(n, 4)
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    g = {"means3d": rng.uniform(-1.5, 1.5, (n, 3)),
-         "scales": np.exp(rng.uniform(-3.5, -1.5, (n, 3))),
-         "rotations": q,
-         "opacities": rng.uniform(0.2, 0.95, (n,)),
-         "shs": rng.randn(n, 9, 3) * 0.3,
-         "feat": rng.randn(n, f_dim)}
-    g = {k: torch.tensor(v.astype(np.float32), device=dev) for k, v in g.items()}
+    from feature3dgs_tpu_torch.data.synthetic import random_gaussians
+    g = {k: torch.from_numpy(v).to(dev)
+         for k, v in random_gaussians(n=n, f_dim=f_dim, seed=seed).items()}
     g["opacities"] = torch.clamp_max(g["opacities"] * boost, 0.999)
     view = transforms.world_to_view(np.eye(3), np.array([0.0, 0.0, 4.0]))
     return g, view
@@ -2608,6 +2626,169 @@ def phase_encoders(dev, params, state):
         ms_unfiltered=f"{auto['unfiltered'][1]:.1f}")
 
 
+# the JAX package's oracle bars (tests/test_rasterize.py:72-81,84-128): per
+# output 99.5% of the values within TIGHT (the alpha_matmul forward within
+# its looser 1e-4) and the worst within LOOSE (depth 0.2); gradients divided
+# by the oracle's largest magnitude, 5e-4 at the 99.5% quantile, 0.05 worst
+ORACLE_FRAC, ORACLE_TIGHT, ORACLE_TIGHT_MM = 0.995, 2e-5, 1e-4
+ORACLE_LOOSE, ORACLE_GRAD_TIGHT, ORACLE_GRAD_LOOSE = 0.02, 5e-4, 0.05
+
+
+def oracle_hold(name, got, ref, tight, loose, lead):
+    """Hold ``got`` against the oracle's ``ref`` at the robust bars; returns
+    (99.5% quantile, worst, share of the pixels or Gaussians (the first
+    ``lead`` dims) with a value past ``tight``) and raises past a bar."""
+    d = (got - ref).abs().flatten(0, lead - 1).reshape(
+        int(np.prod(got.shape[:lead])), -1).cpu().numpy()
+    q, worst = float(np.quantile(d, ORACLE_FRAC)), float(d.max())
+    share = float((d.max(axis=1) > tight).mean())
+    if not (q < tight and worst < loose):
+        raise AssertionError(f"{name}: q{ORACLE_FRAC} {q} (bar {tight}), "
+                             f"worst {worst} (bar {loose})")
+    return q, worst, share
+
+
+def phase_parity(dev):
+    """The CUDA route in both modes against the per-pixel oracle on the
+    card, at the parity CLI's scene with F = 8 and 128. The parity CLI is
+    started first as a subprocess and returned running: its ~8 s of process
+    start and its own oracle run beside these holds and the train CLI
+    (finish_parity_cli reads its report)."""
+    import torch
+    from feature3dgs_tpu_torch.cli import parity_check as pc
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    counts = lambda: (cuda_raster.FORWARD_LAUNCHES,
+                      cuda_raster.FORWARD_MM_LAUNCHES,
+                      cuda_raster.BACKWARD_LAUNCHES,
+                      cuda_raster.BACKWARD_MM_LAUNCHES)
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "feature3dgs_tpu_torch.cli.parity_check"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        for f_dim in (pc.F_DIM, F_DIM):
+            scene = pc.parity_scene(f_dim, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            oracle, g_oracle = pc.run_oracle(scene)
+            torch.cuda.synchronize()
+            oracle_s = time.perf_counter() - t0
+            for mm in (False, True):
+                tag = f"parity F={f_dim} alpha_matmul={mm}"
+                before = counts()
+                out, grads = pc.run_route(scene, "cuda", alpha_matmul=mm)
+                torch.cuda.synchronize()
+                launched = [a - b for a, b in zip(counts(), before)]
+                if launched != ([0, 1, 0, 1] if mm else [1, 0, 1, 0]):
+                    raise AssertionError(f"{tag}: kernel launches {launched}")
+                fields = {}
+                tight = ORACLE_TIGHT_MM if mm else ORACLE_TIGHT
+                for k in ("color", "feature", "depth", "alpha"):
+                    fields[k] = oracle_hold(
+                        f"{tag} {k}", out[k], oracle[k], tight,
+                        0.2 if k == "depth" else ORACLE_LOOSE, 2)
+                for gname, x, y in zip(pc.GRAD_NAMES, grads, g_oracle):
+                    s = max(float(y.abs().max()), 1e-12)
+                    fields[gname] = oracle_hold(
+                        f"{tag} {gname}", x / s, y / s, ORACLE_GRAD_TIGHT,
+                        ORACLE_GRAD_LOOSE, 1)
+                say("parity", F=f_dim, alpha_matmul=mm, size=f"{pc.WIDTH}x"
+                    f"{pc.HEIGHT}", gaussians=pc.N_GAUSS,
+                    oracle_s=f"{oracle_s:.2f}",
+                    worst=json.dumps({k: v[1] for k, v in fields.items()}),
+                    q995=json.dumps({k: v[0] for k, v in fields.items()}),
+                    share_past_tight=json.dumps(
+                        {k: v[2] for k, v in fields.items()}))
+            del scene, oracle, g_oracle, out, grads
+    except BaseException:
+        stop_process(cli)
+        raise
+    return cli
+
+
+def stop_process(proc):
+    """Kill ``proc`` if it still runs and reap it."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def finish_parity_cli(cli):
+    """Wait for the parity CLI: exit 0, a cuda-vs-plain and a
+    plain-vs-oracle line, all_pass on gpu."""
+    try:
+        cli_out, cli_err = cli.communicate(timeout=300)
+    finally:
+        stop_process(cli)
+    lines = [json.loads(ln) for ln in cli_out.splitlines()
+             if ln.startswith("{")]
+    if (cli.returncode != 0 or not lines
+            or lines[-1] != {"backend": "cuda", "platform": "gpu",
+                             "all_pass": True}
+            or [ln["compare"] for ln in lines[:-1]] != [
+                "cuda-vs-plain", "plain-vs-oracle"]):
+        raise AssertionError(f"parity_check CLI exited {cli.returncode}:\n"
+                             f"{cli_out[-3000:]}\n{cli_err[-3000:]}")
+    for ln in lines[:-1]:
+        say("parity_cli", **{k: v for k, v in ln.items()})
+
+
+SETUP_POINTS, SETUP_TRACK = 1_000_000, 4
+
+
+def phase_setup():
+    """Scene setup's host helpers at 1 M points: a points3D.bin written
+    from one numpy structured array (tracks of 4 entries) read back through
+    the port's reader (the native scanner) bit for bit; the native 3-NN
+    against cKDTree at tests/test_data.py's rtol 1e-5 / atol 1e-7."""
+    from scipy.spatial import cKDTree
+
+    from feature3dgs_tpu_torch.data.colmap import read_points3d_binary
+    from feature3dgs_tpu_torch.ops.knn import mean_sq_dist_3nn
+    n = SETUP_POINTS
+    rng = np.random.RandomState(0)
+    rec = np.zeros(n, dtype=[
+        ("id", "<u8"), ("xyz", "<f8", (3,)), ("rgb", "u1", (3,)),
+        ("error", "<f8"), ("track_len", "<u8"),
+        ("track", "<i4", (2 * SETUP_TRACK,))])
+    rec["id"] = np.arange(1, n + 1)
+    rec["xyz"] = rng.uniform(-2.0, 2.0, (n, 3))
+    rec["rgb"] = rng.randint(0, 256, (n, 3))
+    rec["error"] = rng.rand(n)
+    rec["track_len"] = SETUP_TRACK
+    rec["track"] = rng.randint(0, 1000, (n, 2 * SETUP_TRACK))
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "points3D.bin")
+    with open(path, "wb") as f:
+        f.write(np.uint64(n).astype("<u8").tobytes())
+        f.write(rec.tobytes())
+    try:
+        t0 = time.perf_counter()
+        xyz, rgb, err = read_points3d_binary(path)
+        read_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    finally:
+        os.remove(path)
+    for name, got in (("xyz", xyz), ("rgb", rgb), ("error", err)):
+        if got.tobytes() != np.ascontiguousarray(rec[name]).tobytes():
+            raise AssertionError(f"setup: {name} read back differs")
+    pts = xyz.astype(np.float32)
+    t0 = time.perf_counter()
+    got = mean_sq_dist_3nn(pts)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d, _ = cKDTree(pts).query(pts, k=4, workers=-1)
+    want = (d[:, 1:] ** 2).mean(axis=1).astype(np.float32)
+    tree_s = time.perf_counter() - t0
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7,
+                               err_msg="setup: native 3-NN vs cKDTree")
+    say("setup", points=n, track_len=SETUP_TRACK, file_bytes=size,
+        read_s=f"{read_s:.3f}", fields="bit-equal",
+        knn_native_s=f"{native_s:.3f}", knn_native_threads=1,
+        knn_ckdtree_s=f"{tree_s:.3f}", knn_ckdtree_workers=os.cpu_count(),
+        knn_max_abs_err=float(np.abs(got - want).max()))
+
+
 def write_profile(out_dir, name, fn) -> float:
     """Profile fn() into DIR/name; returns the device-busy ms it recorded
     (the sum of every op's own device time)."""
@@ -2643,19 +2824,26 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
+
     from feature3dgs_tpu_torch import default_device
+    from feature3dgs_tpu_torch.native import loader as native
     from feature3dgs_tpu_torch.ops import cuda_raster
     dev = default_device()
 
     t0 = time.time()
-    cuda_raster.build()
+    with ThreadPoolExecutor(1) as pool:        # g++ beside the two nvcc
+        native_built = pool.submit(native.build)
+        cuda_raster.build()
+        native_lib = native_built.result()
     ptxas, entry = [], ""
     for ln in cuda_raster.BUILD_LOG.splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
         elif "registers" in ln or "spill" in ln:
             ptxas.append(f"{entry}: {ln.strip()}")
-    say("build", seconds=f"{time.time() - t0:.1f}", ptxas=json.dumps(ptxas))
+    say("build", seconds=f"{time.time() - t0:.1f}", ptxas=json.dumps(ptxas),
+        native=os.path.relpath(native_lib, ROOT))
     p_main = 32 * 16
     for name in ("raster_forward", "raster_backward"):
         for mm in (False, True):
@@ -2699,6 +2887,8 @@ def main(argv=None) -> int:
         full_mm, bwd_mm = phase_kernel_alpha_full(dev, params, state,
                                                   gt_image, gt_feature)
     del params, state, gt_image, gt_feature
+    if want("setup"):
+        phase_setup()
     if want("train"):
         train_fwd, train_bwd = phase_train(dev, args.profile)
     if (want("kernel_loop") or want("train_loop") or want("train_batch")
@@ -2715,13 +2905,22 @@ def main(argv=None) -> int:
         at_loop = phase_kernel_loop(dev, scene)
     if want("train_loop"):
         loop, loop_mm = phase_train_loop(dev, scene, scene_s)
-    if want("train_cli") or want("serve_cli"):
-        import shutil
-        work = os.path.join(ROOT, "build", "smoke", "cli")
-        out, scene = phase_train_cli(work)
-        if want("serve_cli"):
-            phase_serve_cli(work, out, scene)
-        shutil.rmtree(work, ignore_errors=True)
+    parity_cli = phase_parity(dev) if want("parity") else None
+    try:
+        if want("train_cli") or want("serve_cli"):
+            import shutil
+            work = os.path.join(ROOT, "build", "smoke", "cli")
+            out, scene = phase_train_cli(work)
+            if parity_cli is not None:
+                finish_parity_cli(parity_cli)
+            if want("serve_cli"):
+                phase_serve_cli(work, out, scene)
+            shutil.rmtree(work, ignore_errors=True)
+        elif parity_cli is not None:
+            finish_parity_cli(parity_cli)
+    finally:
+        if parity_cli is not None:
+            stop_process(parity_cli)
 
     print(card_line())
     if only:

@@ -24,7 +24,7 @@ find the counterpart):
   core/      camera transforms, SH, EWA projection
   ops/       binning, plain compositor forward and backward, CUDA kernel
              wrappers, segment-sum, rasterize (autograd Function) and the
-             forward-only rasterize_batch
+             forward-only rasterize_batch, the per-pixel oracle, the 3-NN
   model/     Gaussian parameters, decoder, PLY I/O, Adam, densification
   data/      PLY codec, cameras, COLMAP / Blender loaders, synthetic scenes
   render/    renderer binding (render, render_batch), render and viewer
@@ -34,9 +34,12 @@ find the counterpart):
   train/     losses, train_step and the Trainer, checkpoints
   viewer/    the SIBR remote viewer's protocol, the browser viewer
   encoders/  LSeg, CLIP pixel features, SAM encoding and mask decoding
+  native/    the C++ host helpers (3-NN, points3D.bin scan), built with
+             the host's C++ compiler at first use
   cli/       train, render, segmentation, segmentation_metric, metrics,
-             full_eval, view, web_view, videos, encode_lseg and
-             segment_time (python -m feature3dgs_tpu_torch.cli.<name>)
+             full_eval, view, web_view, videos, encode_lseg, segment_time,
+             parity_check, convert and jpg2png
+             (python -m feature3dgs_tpu_torch.cli.<name>)
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """COLMAP sparse-reconstruction parsers (binary + text), numpy-native.
 
-A copy of ``feature3dgs_tpu/data/colmap.py`` without its optional native
-scanner. Covers the same inputs as the original scene/colmap_loader.py
+A copy of ``feature3dgs_tpu/data/colmap.py``, points3D.bin read by the
+native scanner (``native/loader.py``), the JAX package's first route.
+Covers the same inputs as the original scene/colmap_loader.py
 (cameras.bin/images.bin/points3D.bin and their .txt forms), parsing with
 numpy buffer slicing. Format definitions follow the public COLMAP
 file-format spec.
@@ -13,6 +14,8 @@ import struct
 from typing import NamedTuple
 
 import numpy as np
+
+from feature3dgs_tpu_torch.native import loader as native
 
 # COLMAP camera models: model_id -> (name, num_params)
 CAMERA_MODELS = {
@@ -90,29 +93,16 @@ def read_images_binary(path: str) -> dict[int, ColmapImage]:
 
 
 def read_points3d_binary(path: str):
-    """Returns (xyz [N,3] f64, rgb [N,3] u8, error [N] f64) — vectorized.
+    """Returns (xyz [N,3] f64, rgb [N,3] u8, error [N] f64).
 
-    The record layout is variable-length (track lists), so we do one linear
-    scan to collect record offsets, then gather fields with numpy.
+    The records have variable length (track lists): the native scanner of
+    ``native/src/f3dgs_native.cc`` walks them in one pass and raises on a
+    truncated file.
     """
     with open(path, "rb") as f:
         data = f.read()
     (n,) = struct.unpack_from("<Q", data, 0)
-    offs = np.empty(n, dtype=np.int64)
-    off = 8
-    for i in range(n):
-        offs[i] = off
-        (track_len,) = struct.unpack_from("<Q", data, off + 43)
-        off += 43 + 8 + 8 * track_len
-    buf = np.frombuffer(data, dtype=np.uint8)
-    # fields: id u64 (skip), xyz 3*f8 at +8, rgb 3*u1 at +32, error f8 at +35
-    xyz_idx = offs[:, None] + 8 + np.arange(24)[None, :]
-    xyz = buf[xyz_idx].copy().view("<f8").reshape(n, 3)
-    rgb_idx = offs[:, None] + 32 + np.arange(3)[None, :]
-    rgb = buf[rgb_idx].reshape(n, 3).copy()
-    err_idx = offs[:, None] + 35 + np.arange(8)[None, :]
-    err = buf[err_idx].copy().view("<f8").reshape(n)
-    return xyz, rgb, err
+    return native.colmap_scan_points3d(data, n)
 
 
 def read_cameras_text(path: str) -> dict[int, ColmapCamera]:

@@ -4,7 +4,9 @@
 ``feature3dgs_tpu/data/synthetic.py``: the same numpy draws in the same
 order, so both packages build the same scene from one seed.
 ``write_blender_scene`` writes a Blender-style scene folder that
-``load_scene`` and the CLIs read.
+``load_scene`` and the CLIs read. ``make_camera`` and ``random_gaussians``
+copy the test scenes of ``tests/utils.py`` (numpy draws in the same order),
+which ``cli/parity_check.py`` renders as ``scripts/parity_check.py`` does.
 """
 from __future__ import annotations
 
@@ -42,6 +44,39 @@ def synthetic_scene(n_cams=6, w=64, h=48, n_pts=256, f_dim=8, seed=0
     return SceneData(train_cameras=cams, test_cameras=[], points=pts,
                      colors=cols, nerf_norm={"radius": 4.0},
                      feature_dim=f_dim, source_path="<synthetic>")
+
+
+def make_camera(width=64, height=48, fovx=1.0, fovy=0.8, cam_z=-4.0,
+                device=None):
+    """Camera at (0,0,cam_z) looking down +z at the origin, on
+    ``default_device(device)``."""
+    from feature3dgs_tpu_torch.convert import camera_from_numpy
+    from feature3dgs_tpu_torch.core import transforms
+    view = transforms.world_to_view(np.eye(3), np.array([0.0, 0.0, -cam_z]))
+    proj = transforms.projection_matrix(0.01, 100.0, fovx, fovy) @ view
+    return camera_from_numpy(view, proj,
+                             transforms.camera_center_from_view(view),
+                             np.tan(fovx / 2), np.tan(fovy / 2), width, height,
+                             device)
+
+
+def random_gaussians(n=200, f_dim=8, seed=0, spread=1.5, scale_lo=-3.5,
+                     scale_hi=-1.5, max_sh_degree=2) -> dict[str, np.ndarray]:
+    """Random Gaussians as float32 numpy arrays by name (means3d, scales,
+    rotations, opacities, shs [n, (max_sh_degree+1)^2, 3], feat)."""
+    rng = np.random.RandomState(seed)
+    m = (max_sh_degree + 1) ** 2
+    q = rng.randn(n, 4)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return {
+        "means3d": rng.uniform(-spread, spread, (n, 3)).astype(np.float32),
+        "scales": np.exp(rng.uniform(scale_lo, scale_hi, (n, 3))).astype(
+            np.float32),
+        "rotations": q.astype(np.float32),
+        "opacities": rng.uniform(0.2, 0.95, (n,)).astype(np.float32),
+        "shs": rng.randn(n, m, 3).astype(np.float32) * 0.3,
+        "feat": rng.randn(n, f_dim).astype(np.float32),
+    }
 
 
 def write_blender_scene(path: str, *, n_frames: int = 4, size: int = 128,

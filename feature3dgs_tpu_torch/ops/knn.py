@@ -4,12 +4,15 @@ Gaussian scales.
 Port of ``feature3dgs_tpu/ops/knn.py:mean_sq_dist_3nn`` (the original
 simple-knn ``distCUDA2``, which averages SQUARED distances). It runs once
 per scene on the host, so it is no kernel. One route by size, no fallback
-chain: brute force for up to four points, ``scipy.spatial.cKDTree``
-otherwise; a missing scipy raises.
+chain: brute force for up to four points, the JAX package's first route
+otherwise, the native grid search of ``native/src/f3dgs_native.cc``; a
+failed build of the native library raises.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from feature3dgs_tpu_torch.native import loader as native
 
 
 def _brute(points: np.ndarray) -> np.ndarray:
@@ -27,6 +30,4 @@ def mean_sq_dist_3nn(points: np.ndarray) -> np.ndarray:
     points = np.asarray(points, np.float32)
     if points.shape[0] <= 4:
         return _brute(points)
-    from scipy.spatial import cKDTree
-    dists, _ = cKDTree(points).query(points, k=4, workers=-1)  # self + 3
-    return (dists[:, 1:] ** 2).mean(axis=1).astype(np.float32)
+    return native.knn_mean_sq_dist(points)

@@ -279,8 +279,8 @@ def test_grow_capacity_and_sh_degree_match_jax():
 
 @pytest.mark.parametrize("n", [1, 3, 4, 5, 600])
 def test_mean_sq_dist_3nn_matches_jax(n):
-    """Brute force up to four points, a k-d tree beyond; 1e-6 relative
-    (squared distances summed in another order)."""
+    """Brute force up to four points, the native grid search beyond (the
+    JAX package's first route, built separately); 1e-6 relative."""
     pts = np.random.RandomState(n).uniform(-2, 2, (n, 3)).astype(np.float32)
     got = pknn.mean_sq_dist_3nn(pts)
     ref = np.asarray(jknn.mean_sq_dist_3nn(pts))

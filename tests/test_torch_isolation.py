@@ -41,6 +41,43 @@ def test_port_sources_import_nothing_of_jax():
                 names = [node.module or ""]
             bad += [f"{path}: {n}" for n in names if _forbidden(n)]
     assert not bad, bad
+    covered = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {"native/loader.py", "cli/parity_check.py", "cli/convert.py",
+            "cli/jpg2png.py", "ops/oracle.py"} <= covered
+
+
+def test_native_loader_opens_nothing_of_the_jax_package(tmp_path):
+    """From an empty build directory the loader compiles, loads and runs
+    its own copy of the native source: an audit hook sees every file
+    opened, process started and library loaded, and none is under
+    feature3dgs_tpu/ (whose checked-in libf3dgs_native.so is the JAX
+    package's)."""
+    code = (
+        "import sys\n"
+        "seen = []\n"
+        "sys.addaudithook(lambda ev, args: seen.append((ev, repr(args))) if ev "
+        "in ('open', 'subprocess.Popen', 'ctypes.dlopen') else None)\n"
+        "from pathlib import Path\n"
+        "import numpy as np\n"
+        "from feature3dgs_tpu_torch.native import loader\n"
+        "loader.BUILD_DIR = Path(sys.argv[1])\n"
+        "loader.knn_mean_sq_dist(np.random.rand(32, 3))\n"
+        "import struct\n"
+        "loader.colmap_scan_points3d(struct.pack('<Q', 0), 0)\n"
+        "jax_dir = sys.argv[2]\n"
+        "bad = [s for s in seen if jax_dir in s[1]]\n"
+        "loads = [s for s in seen if s[0] == 'ctypes.dlopen' and 'f3dgs' in "
+        "s[1]]\n"
+        "assert not bad, bad\n"
+        "assert len(loads) == 1 and sys.argv[1] in loads[0][1], loads\n"
+        "print(sum(s[0] == 'subprocess.Popen' for s in seen))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "native"),
+         os.path.join(ROOT, "feature3dgs_tpu") + os.sep], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) == 2     # the target query, the build
 
 
 def test_importing_the_port_loads_no_jax():
@@ -263,6 +300,14 @@ def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _call_entry_point(name, tmp_path)
+
+
+def test_parity_check_defaults_to_the_card(monkeypatch):
+    """cli.parity_check resolves its device before it builds the scene."""
+    from feature3dgs_tpu_torch.cli import parity_check
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parity_check.main([])
 
 
 def test_backward_kernel_wrapper_raises_on_cpu_tensors():

@@ -63,8 +63,9 @@ Phases, one line each; any failure raises and exits non-zero:
                kernels' own chunk of 32 at the training scene's bars, two
                backward launches bit-equal, 20 launches each timed by CUDA
                events, that scene's own bound and design bytes.
-  train        bench.py's training step (bench.py:81-119: the scene above,
-               a 608x400 128-d teacher, black background, default
+  train        bench.py's training step as cli/bench.py builds it
+               (bench.make_step; bench.py:81-119: the scene above, a
+               608x400 128-d teacher, black background, default
                OptimizationConfig): step 1's Adam moments equal to the
                plain backend's at 1e-5 (max-normalised per group), then
                2 warm-up and 10 timed steps, each finite and making one
@@ -87,6 +88,24 @@ Phases, one line each; any failure raises and exits non-zero:
                rows at 1e-3 (against the exact mode: per-Gaussian sums, on
                all but 0.1% of the Gaussians); ms of each kernel (20 launches), the bytes bound,
                n_contrib differences, gradient error max-normalised.
+  kernel_wide  both kernels in both modes at F = 256 and 512 (the
+               reference's SAM and LSeg widths; the forward's 2 and 4
+               channel groups, the backward's 16- and 8-row ring stages):
+               at a test scene (64x48, 16x16 tiles, boosted opacities) at
+               kernel_small's and kernel_bwd_small's bars (n_contrib
+               exactly; kernel_alpha_small's in the alpha_matmul mode),
+               and at the training scene at that width (303,278
+               instances) at kernel_full's and kernel_bwd_full's bars
+               (kernel_alpha_full's in the alpha_matmul mode); each
+               kernel's time (20 launches) beside its bytes bound and
+               launch plan.
+  bench_clis   the measuring CLIs' main in process at their full default
+               scenes with few iterations: cli.bench, cli.bench_render (F =
+               16, 128, 256), cli.profile_step, cli.bench_longrun (80
+               iterations) and cli.bench_scaling (one card); the JAX
+               scripts' JSON keys, finite numbers and loss, the card named
+               in every line, no capacity growth in the long run's
+               measured region.
   parity       the parity CLI's scene (1,000 Gaussians, 208x160, SH degree
                3) at F = 8 and at F = 128: the CUDA route (one forward and
                one backward launch) in the exact and alpha_matmul modes
@@ -190,7 +209,8 @@ Phases, one line each; any failure raises and exits non-zero:
                exit code, the artifact trees, finite scores.
 Then the card's name and power limit, a {"kernels": [...]} line (the two
 forward entries also with batch8_ms and batch8_bound_ms, the two backward
-entries with batch4_ms and batch4_bound_ms) and, last,
+entries with batch4_ms and batch4_bound_ms, all four with f256_ms,
+f256_bound_ms, f512_ms and f512_bound_ms from kernel_wide) and, last,
 {"ok": true, "device": {...}}. With --profile DIR, torch.profiler tables of
 two served views, of the 8 views sequential and in a batch of 8 (with the
 device-busy ms and idle share of each) and of two training steps are
@@ -214,6 +234,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+from feature3dgs_tpu_torch.bench_utils import (bench_camera,  # noqa: E402
+                                               bench_scene, blocking_calls,
+                                               camera, card_line,
+                                               device_busy_ms, orbit_view)
 
 # H100 SXM data-sheet peaks (dense): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -254,13 +279,6 @@ def say(phase: str, **fields):
           + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over reps calls (after a warm-up)."""
     import torch
@@ -273,16 +291,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def camera(view, width, height, tan_x, tan_y, dev):
-    from feature3dgs_tpu_torch.convert import camera_from_numpy
-    from feature3dgs_tpu_torch.core import transforms
-    fovx, fovy = 2 * math.atan(tan_x), 2 * math.atan(tan_y)
-    proj = transforms.projection_matrix(0.01, 100.0, fovx, fovy) @ view
-    return camera_from_numpy(
-        view, proj, transforms.camera_center_from_view(view).astype(np.float32),
-        tan_x, tan_y, width, height, dev)
 
 
 def small_scene(n, f_dim, seed, boost, dev):
@@ -341,40 +349,6 @@ def phase_kernel_small(dev):
             instances=int(ci.bins.total), max_abs_err=err, n_contrib="equal")
 
 
-def bench_scene(dev, feature_dim=F_DIM, teacher_dim=F_DIM):
-    """bench.py's scene and targets (bench.py:81-105), numpy draws in its
-    order: seed 0, 100K Gaussians in [-2, 2]^3, SH degree 3 (DC from random
-    colors), opacity 0.5, ``feature_dim`` channels ~ N(0, 0.1^2); then
-    gt_image U(0,1) [800,1216,3] and a teacher ~ N(0, 0.1^2)
-    [400,608,teacher_dim]. The camera is orbit_view(0)."""
-    import torch
-    from feature3dgs_tpu_torch.model import gaussians as G
-    rng = np.random.RandomState(0)
-    pts = rng.uniform(-2.0, 2.0, (N_GAUSS, 3)).astype(np.float32)
-    cols = rng.rand(N_GAUSS, 3).astype(np.float32)
-    params, state = G.create_from_pcd(
-        pts, cols, max_sh_degree=3, feature_dim=feature_dim, capacity=N_GAUSS,
-        knn_mean_dists=np.full(N_GAUSS, 2e-4, np.float32), device=dev)
-    params.semantic_feature = torch.from_numpy(
-        rng.randn(N_GAUSS, 1, feature_dim).astype(np.float32) * 0.1).to(dev)
-    params.opacity = torch.zeros((N_GAUSS, 1), device=dev)
-    state.active_sh_degree = 3
-    gt_image = torch.from_numpy(
-        rng.rand(HEIGHT, WIDTH, 3).astype(np.float32)).to(dev)
-    gt_feature = torch.from_numpy(
-        rng.randn(HEIGHT // 2, WIDTH // 2, teacher_dim).astype(np.float32)
-        * 0.1).to(dev)
-    return params, state, gt_image, gt_feature
-
-
-def orbit_view(i):
-    """scripts/bench_render.py's orbit: rotate about z by 0.05 * i."""
-    from feature3dgs_tpu_torch.core import transforms
-    c, s = math.cos(0.05 * i), math.sin(0.05 * i)
-    rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
-    return transforms.world_to_view(rot, np.array([0.0, 0.0, 5.0]))
-
-
 def bench_inputs(dev, params, state, cam=None):
     """The training / serving scene from orbit view 0 (or ``cam``),
     preprocessed and binned at the default RasterConfig."""
@@ -383,8 +357,7 @@ def bench_inputs(dev, params, state, cam=None):
     from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
                                                      composite_inputs)
     if cam is None:
-        cam = camera(orbit_view(0), WIDTH, HEIGHT, math.tan(0.6),
-                     math.tan(0.45), dev)
+        cam = bench_camera(WIDTH, HEIGHT, dev)
     opacity = torch.where(state.alive, G.get_opacity(params),
                           torch.zeros((), device=dev))
     return composite_inputs(
@@ -394,7 +367,7 @@ def bench_inputs(dev, params, state, cam=None):
         active_mask=state.alive, config=RasterConfig())
 
 
-def forward_bound(stats, n_tiles, p):
+def forward_bound(stats, n_tiles, p, f_dim=F_DIM):
     """Bytes and operations the forward needs for these inputs, each input
     read once and each output written once: x, y, conic, opacity of the
     Gaussians some pixel tests; rgb, depth, features of those that
@@ -402,26 +375,26 @@ def forward_bound(stats, n_tiles, p):
     color, depth, final_T, n_contrib and the features of every pixel."""
     n_tested = int(stats["tested_gaussians"].sum())
     n_contributing = int(stats["contributing_gaussians"].sum())
-    n_bytes = 4 * (6 * n_tested + (4 + F_DIM) * n_contributing
+    n_bytes = 4 * (6 * n_tested + (4 + f_dim) * n_contributing
                    + stats["entries_tested"] + 2 * n_tiles
-                   + n_tiles * p * (F_DIM + 6))
+                   + n_tiles * p * (f_dim + 6))
     ops = (OPS_TESTED * stats["tested"]
-           + (OPS_CONTRIB + 2 * F_DIM) * stats["contributing"])
+           + (OPS_CONTRIB + 2 * f_dim) * stats["contributing"])
     return n_bytes, ops, n_tested, n_contributing
 
 
-def backward_bound(stats, n_tiles, p, n_inst):
+def backward_bound(stats, n_tiles, p, n_inst, f_dim=F_DIM):
     """The same for the backward: the pixel cotangents, final_T and
     n_contrib; x, y, conic, opacity of the Gaussians some walk reaches, rgb
     and depth of those that count; the walked list ids, the tiles' starts
     and counts; one row per entry."""
     n_walked = int(stats["walked_gaussians"].sum())
     n_contributing = int(stats["contributing_gaussians"].sum())
-    n_bytes = 4 * (n_tiles * p * (F_DIM + 7) + 6 * n_walked
+    n_bytes = 4 * (n_tiles * p * (f_dim + 7) + 6 * n_walked
                    + 4 * n_contributing + stats["entries_walked"]
-                   + 2 * n_tiles + n_inst * (10 + F_DIM))
+                   + 2 * n_tiles + n_inst * (10 + f_dim))
     ops = (OPS_BWD_WALKED * stats["walked"]
-           + (OPS_BWD_CONTRIB + 2 * F_DIM) * stats["contributing"])
+           + (OPS_BWD_CONTRIB + 2 * f_dim) * stats["contributing"])
     return n_bytes, ops, n_walked, n_contributing
 
 
@@ -542,8 +515,7 @@ def phase_serve(dev, params, state, profile_dir):
     save_gaussians_ply(ply, params, state)
     params, state = load_gaussians_ply(ply, max_sh_degree=3, device=dev)
     decoder = init_decoder(F_DIM, F_OUT, seed=0, device=dev)
-    cams = [camera(orbit_view(i), WIDTH, HEIGHT, math.tan(0.6),
-                   math.tan(0.45), dev) for i in range(N_VIEWS)]
+    cams = [bench_camera(WIDTH, HEIGHT, dev, i) for i in range(N_VIEWS)]
 
     def serve(cam, config=RasterConfig()):
         out = renderer.render(params, state, cam, config=config)
@@ -615,8 +587,7 @@ def phase_serve_batch(dev, params, state, profile_dir):
                                                      composite_inputs_batch)
     from feature3dgs_tpu_torch.render import renderer
 
-    cams = [camera(orbit_view(i), WIDTH, HEIGHT, math.tan(0.6),
-                   math.tan(0.45), dev) for i in range(N_VIEWS)]
+    cams = [bench_camera(WIDTH, HEIGHT, dev, i) for i in range(N_VIEWS)]
     mm_cfg = RasterConfig(alpha_matmul=True)
 
     def batches(bsz, config=RasterConfig()):
@@ -934,11 +905,6 @@ def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
             **bound_fields(n_bytes, ops)}
 
 
-def orbit_cameras(dev, n):
-    return [camera(orbit_view(i), WIDTH, HEIGHT, math.tan(0.6), math.tan(0.45),
-                   dev) for i in range(n)]
-
-
 def phase_kernel_bwd_slice(dev, params, state, gt_image, gt_feature):
     """The backward kernel's tile slices and batched cameras at the training
     scene: over 2 and 4 slices of tile rows of view 0 (each launched with
@@ -993,7 +959,7 @@ def phase_kernel_bwd_slice(dev, params, state, gt_image, gt_feature):
         slices[n_tile] = len(ranges)
     del full
 
-    cams = orbit_cameras(dev, BATCH)
+    cams = [bench_camera(WIDTH, HEIGHT, dev, i) for i in range(BATCH)]
     n = params.xyz.shape[0]
     cb = composite_inputs_batch(
         params.xyz, torch.where(state.alive, G.get_opacity(params),
@@ -1054,24 +1020,6 @@ def phase_kernel_bwd_slice(dev, params, state, gt_image, gt_feature):
         batch4_bound_by=bound["bound_by"])
     return {mm: {"batch4_ms": ms[mm], "batch4_bound_ms": bound["bound_ms"]}
             for mm in (False, True)}
-
-
-def blocking_calls(step) -> int:
-    """The host calls that block on the card while step() runs (CUDA's
-    sync debug mode)."""
-    import warnings
-
-    import torch
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchronizing CUDA operation" in str(w.message)
-               for w in caught)
 
 
 def phase_train_batch(dev, scene, at_batch4, profile_dir):
@@ -1458,29 +1406,18 @@ def phase_kernel_loop(dev, scene):
 
 
 def phase_train(dev, profile_dir):
+    """bench.py's step as cli/bench.py builds it (``bench.make_step``)."""
     import torch
+    from feature3dgs_tpu_torch.cli import bench
     from feature3dgs_tpu_torch.model.decoder import init_decoder
     from feature3dgs_tpu_torch.ops import cuda_raster
     from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
     from feature3dgs_tpu_torch.train.trainer import (OptimizationConfig,
                                                      TrainState, train_step)
-    cam = camera(orbit_view(0), WIDTH, HEIGHT, math.tan(0.6), math.tan(0.45),
-                 dev)
-    bg = torch.zeros(3, device=dev)
-    ocfg = OptimizationConfig()
-    rcfg = RasterConfig(instance_capacity=393216, chunk=128)
-
-    def fresh(**kw):
-        params, state, gt_image, gt_feature = bench_scene(dev, **kw)
-        return TrainState.create(params, state, device=dev), gt_image, gt_feature
-
     # step 1 through the plain versions, then through the kernels
-    ts_plain, gt_image, gt_feature = fresh()
-    m_plain = train_step(ts_plain, cam, gt_image, gt_feature, bg, 1,
-                         ocfg=ocfg,
-                         rcfg=dataclasses.replace(rcfg, backend="plain"),
-                         speedup=False)
-    ts, _, _ = fresh()
+    ts_plain, plain_step = bench.make_step(dev, backend="plain")
+    m_plain = plain_step(1)
+    ts, step = bench.make_step(dev)
     cuda_raster.FORWARD_LAUNCHES = cuda_raster.BACKWARD_LAUNCHES = 0
     times, losses, per_step = [], [], []
     for it in range(1, 13):       # 2 warm-up steps, 10 timed
@@ -1489,8 +1426,7 @@ def phase_train(dev, profile_dir):
             torch.cuda.reset_peak_memory_stats()
         f0, b0 = cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES
         t0 = time.perf_counter()
-        m = train_step(ts, cam, gt_image, gt_feature, bg, it, ocfg=ocfg,
-                       rcfg=rcfg, speedup=False)
+        m = step(it)
         torch.cuda.synchronize()
         if it >= 3:
             times.append((time.perf_counter() - t0) * 1e3)
@@ -1512,11 +1448,10 @@ def phase_train(dev, profile_dir):
     peak = torch.cuda.max_memory_allocated()
     if set(per_step) != {(1, 1)}:
         raise AssertionError(f"train: launches per step {per_step}")
-    del ts_plain
+    del ts_plain, plain_step
     if profile_dir:
-        write_profile(profile_dir, "train_profile.txt", lambda: [
-            train_step(ts, cam, gt_image, gt_feature, bg, 13 + i, ocfg=ocfg,
-                       rcfg=rcfg, speedup=False) for i in range(2)])
+        write_profile(profile_dir, "train_profile.txt",
+                      lambda: [step(13 + i) for i in range(2)])
     say("train", steps=len(times), step_ms_median=f"{statistics.median(times):.3f}",
         step_ms_min=f"{min(times):.3f}", step_ms_max=f"{max(times):.3f}",
         peak_mem_bytes=peak, instances=instances,
@@ -1525,7 +1460,11 @@ def phase_train(dev, profile_dir):
         loss_first=f"{losses[0]:.6f}", loss_last=f"{losses[-1]:.6f}")
 
     # the --speedup variant: 128 rendered channels lifted to 512
-    del ts
+    del ts, step
+    cam = bench_camera(WIDTH, HEIGHT, dev)
+    bg = torch.zeros(3, device=dev)
+    ocfg = OptimizationConfig()
+    rcfg = RasterConfig(instance_capacity=bench.INSTANCE_CAPACITY, chunk=128)
     params, state, gt_image, gt_feature = bench_scene(dev, teacher_dim=F_OUT)
     decoder = init_decoder(F_DIM, F_OUT, seed=0, device=dev)
     w0 = decoder["w"].clone()
@@ -1724,6 +1663,241 @@ def phase_kernel_alpha_full(dev, params, state, gt_image, gt_feature):
              "plain_ms": fwd_plain_ms, **bound_fields(fb, fo)},
             {"max_abs_err": g_abs, "ms": mean[("bwd", True)],
              "plain_ms": bwd_plain_ms, **bound_fields(bb, bo)})
+
+
+# the reference's wide feature widths: SAM's 256, LSeg's 512 without the
+# speed-up decoder (bench.py:39-42)
+WIDE_DIMS = (256, 512)
+
+
+def phase_kernel_wide(dev):
+    """Both kernels in both modes at F = 256 and 512 against their plain
+    versions, where the launch plans differ from F = 128: the forward
+    composites 2 and 4 channel groups a tile (only group 0 writes color,
+    depth, final_T and n_contrib), the backward stages 16 and 8 cotangent
+    rows a ring stage at 512-pixel tiles. At a test scene (300 Gaussians,
+    64x48, 16x16 tiles, boosted opacities) at kernel_small's and
+    kernel_bwd_small's bars (kernel_alpha_small's in the alpha_matmul
+    mode), and at the training scene (bench_scene at that width, orbit view
+    0, 32x16 tiles) at kernel_full's and kernel_bwd_full's (the alpha_matmul
+    mode at kernel_alpha_full's, with bench.py's loss cotangents). Each
+    kernel timed at the training scene (20 launches) beside its bytes
+    bound. Returns {(kernel, mode): the kernels line's f{F}_ms and
+    f{F}_bound_ms fields}."""
+    import torch
+    from feature3dgs_tpu_torch.ops.composite import (composite_plain,
+                                                     composite_plain_backward)
+    from feature3dgs_tpu_torch.ops.cuda_raster import (backward_plan,
+                                                       forward_plan,
+                                                       raster_backward_cuda,
+                                                       raster_forward_cuda)
+    from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
+                                                     composite_inputs)
+    from feature3dgs_tpu_torch.ops.segment import SegmentPlan
+    out = {}
+    for f_dim, seed in zip(WIDE_DIMS, (4, 2)):
+        # the test scene
+        g, view = small_scene(300, f_dim, seed, 3.0, dev)
+        cam = camera(view, 64, 48, math.tan(0.5), math.tan(0.4), dev)
+        ci = composite_inputs(
+            g["means3d"], g["opacities"], g["feat"], cam, scales=g["scales"],
+            rotations=g["rotations"], shs=g["shs"], sh_degree=2,
+            config=RasterConfig(tile_w=16, tile_h=16))
+        plan = SegmentPlan(ci.bins.gid_sorted, ci.args[0].shape[0])
+        n_inst = ci.bins.gid_sorted.shape[0]
+        small = {}
+        for mm in (False, True):
+            tag = f"kernel_wide F={f_dim} test scene alpha_matmul={mm}"
+            fwd = raster_forward_cuda(*ci.args, alpha_matmul=mm)
+            ref = composite_plain(*ci.args, chunk=16, alpha_matmul=mm)
+            gen = torch.Generator().manual_seed(seed)
+            cts = [torch.randn(x.shape, generator=gen).to(dev)
+                   for x in (fwd.color, fwd.feature, fwd.depth, fwd.final_T)]
+            rest = (*cts, fwd.final_T, fwd.n_contrib)
+            rows = raster_backward_cuda(*ci.args, *rest, alpha_matmul=mm,
+                                        out=poisoned_rows(n_inst, f_dim, dev))
+            ref_rows = composite_plain_backward(*ci.args, *rest, chunk=16,
+                                                alpha_matmul=mm)
+            torch.cuda.synchronize()
+            if mm:
+                f_err = compare_alpha(tag, fwd, ref)[0]
+            else:
+                f_err = compare(tag, fwd, ref, 1e-5, 1e-4, 1.0)[0]
+            assert_all_written(tag, rows)
+            b_err, _ = compare_rows(tag + " backward", rows, ref_rows, plan,
+                                    1e-4 if mm else 5e-6)
+            small[mm] = (f_err, b_err)
+        say("kernel_wide", F=f_dim, scene="test", size="64x48",
+            instances=int(ci.bins.total),
+            fwd_max_abs_err=json.dumps([small[False][0], small[True][0]]),
+            bwd_max_norm_err=json.dumps([small[False][1], small[True][1]]),
+            modes="exact,alpha_matmul", n_contrib="equal (exact)", nan_rows=0)
+        del g, ci, plan, fwd, ref, cts, rest, rows, ref_rows
+
+        # the training scene
+        params, state, gt_image, gt_feature = bench_scene(dev, f_dim=f_dim)
+        ci = bench_inputs(dev, params, state)
+        n_tiles, p = ci.grid.num_tiles, ci.grid.pixels_per_tile
+        n_inst = ci.bins.gid_sorted.shape[0]
+        plan = SegmentPlan(ci.bins.gid_sorted, N_GAUSS)
+        fields = {}
+        for mm in (False, True):
+            tag = f"kernel_wide F={f_dim} training scene alpha_matmul={mm}"
+            f_stats, b_stats = {}, {}
+            fwd = raster_forward_cuda(*ci.args, alpha_matmul=mm)
+            ref = composite_plain(*ci.args, chunk=128, alpha_matmul=mm,
+                                  stats=f_stats)
+            torch.cuda.synchronize()
+            if mm:
+                f_err, _, mism, _ = compare_alpha(tag, fwd, ref)
+            else:
+                f_err, mism, _ = compare(tag, fwd, ref, 1e-4, 1e-3, 0.9999)
+            del ref
+            args = (*ci.args, *bench_loss_cotangents(ci, fwd, gt_image,
+                                                     gt_feature),
+                    fwd.final_T, fwd.n_contrib)
+            rows = raster_backward_cuda(*args, alpha_matmul=mm,
+                                        check_lists=False,
+                                        out=poisoned_rows(n_inst, f_dim, dev))
+            ref_rows = composite_plain_backward(*args, chunk=128,
+                                                alpha_matmul=mm,
+                                                stats=b_stats)
+            torch.cuda.synchronize()
+            assert_all_written(tag, rows)
+            b_err, _ = compare_rows(tag + " backward", rows, ref_rows, plan,
+                                    1e-3 if mm else 1e-5)
+            del ref_rows, rows
+            f_ms = cuda_ms(lambda: raster_forward_cuda(*ci.args,
+                                                       alpha_matmul=mm), 20)
+            b_ms = cuda_ms(lambda: raster_backward_cuda(
+                *args, alpha_matmul=mm, check_lists=False), 20)
+            del fwd, args
+            fb = bound_fields(*forward_bound(f_stats, n_tiles, p, f_dim)[:2])
+            bb = bound_fields(*backward_bound(b_stats, n_tiles, p, n_inst,
+                                              f_dim)[:2])
+            fp, bp = forward_plan(p, f_dim, mm), backward_plan(p, f_dim, mm)
+            say("kernel_wide", F=f_dim, scene="training", alpha_matmul=mm,
+                instances=int(ci.bins.total), fwd_max_abs_err=f_err,
+                n_contrib_mismatches=mism, bwd_max_norm_err=b_err,
+                fwd_ms=f"{f_ms:.4f}", fwd_bound_ms=f"{fb['bound_ms']:.4f}",
+                fwd_bound_by=fb["bound_by"], bwd_ms=f"{b_ms:.4f}",
+                bwd_bound_ms=f"{bb['bound_ms']:.4f}",
+                bwd_bound_by=bb["bound_by"],
+                fwd_plan=f"groups={fp.groups},splits={fp.splits},"
+                f"threads={fp.threads},smem={fp.smem_bytes}",
+                bwd_plan=f"entries={bp.entries},ring_rows={bp.ring_rows},"
+                f"smem={bp.smem_bytes}")
+            for name, ms, bound in (("fwd", f_ms, fb), ("bwd", b_ms, bb)):
+                out.setdefault((name, mm), {}).update({
+                    f"f{f_dim}_ms": ms, f"f{f_dim}_bound_ms": bound["bound_ms"]})
+        del params, state, gt_image, gt_feature, ci, plan
+        torch.cuda.empty_cache()
+    return out
+
+
+# what each measuring CLI prints (the JAX scripts' keys; bench_render,
+# bench_longrun and bench_scaling also name the device)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL = {"step_ms", "timing_method", "compile_s", "instances", "image",
+                "n_gauss", "f_dim", "device", "loss"}
+RENDER_KEYS = {"metric", "f_dim", "render_ms", "fps", "batch", "image",
+               "n_gauss", "platform", "device"}
+LONGRUN_DETAIL = {"overall_ms_it", "in_window_median_ms_it",
+                  "densify_window_median_ms_it", "measured_iters", "spans",
+                  "densify_spans", "num_active", "capacity_regrew", "device"}
+SCALING_KEYS = {"devices", "mesh", "images_per_step", "platform", "backend",
+                "step_ms", "step_ms_ratio_vs_1dev", "efficiency_vs_1dev",
+                "device"}
+
+
+def finite_numbers(obj) -> bool:
+    """Every number in a parsed JSON value is finite."""
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(finite_numbers(v) for v in obj)
+    return not isinstance(obj, float) or math.isfinite(obj)
+
+
+def phase_bench_clis():
+    """The five measuring CLIs' main in process, each at its full default
+    scene with few iterations: cli.bench (bench.py's step), cli.bench_render
+    (F = 16, 128, 256), cli.profile_step, cli.bench_longrun (80 iterations,
+    a round every 20, 50 of warm-up) and cli.bench_scaling (the 1-card row).
+    Each printed line's keys, finite numbers and loss, the card named in
+    each, no capacity growth inside the long run's measured region.
+    Returns the forward and backward launches the five made."""
+    import contextlib
+    import io
+
+    from feature3dgs_tpu_torch.cli import (bench, bench_longrun, bench_render,
+                                           bench_scaling, profile_step)
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    runs = {"bench": (bench.main, []),
+            "bench_render": (bench_render.main, ["--iters", "2"]),
+            "profile_step": (profile_step.main, ["--n", "2", "--top", "5"]),
+            "bench_longrun": (bench_longrun.main, [
+                "--iters", "80", "--warmup", "50", "--densify_interval",
+                "20"]),
+            "bench_scaling": (bench_scaling.main, ["--iters", "2"])}
+    card = card_line()
+    printed, seconds = {}, {}
+    cuda_raster.FORWARD_LAUNCHES = cuda_raster.BACKWARD_LAUNCHES = 0
+    for name, (main, argv) in runs.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        printed[name] = buf.getvalue()
+        if rc != 0:
+            raise AssertionError(f"bench_clis: {name} returned {rc}:\n"
+                                 f"{printed[name][-2000:]}")
+    launches = (cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)
+    js = {name: [json.loads(ln) for ln in text.splitlines()
+                 if ln.startswith("{")] for name, text in printed.items()}
+    problems = []
+    (b,) = js["bench"]
+    if (set(b) != BENCH_KEYS or set(b["detail"]) != BENCH_DETAIL
+            or b["detail"]["timing_method"] != "cuda_events"
+            or not finite_numbers(b) or b["detail"]["loss"] <= 0):
+        problems.append(f"bench {b}")
+    if ([r["f_dim"] for r in js["bench_render"]] != [16, 128, 256] or any(
+            set(r) != RENDER_KEYS or r["platform"] != "gpu"
+            or not finite_numbers(r) for r in js["bench_render"])):
+        problems.append(f"bench_render {js['bench_render']}")
+    text = printed["profile_step"]
+    loss = float(text.split("loss=")[1].split()[0])
+    if ("step span:" not in text or "   med_ms count  name" not in text
+            or "idle share" not in text or not math.isfinite(loss)
+            or card not in text):
+        problems.append(f"profile_step {text[-1500:]}")
+    (lr,) = js["bench_longrun"]
+    if (set(lr["detail"]) != LONGRUN_DETAIL or lr["detail"]["capacity_regrew"]
+            or not finite_numbers(lr)):
+        problems.append(f"bench_longrun {lr}")
+    (sc,) = js["bench_scaling"]
+    if set(sc) != SCALING_KEYS or sc["mesh"] != [1, 1] or \
+            not finite_numbers(sc):
+        problems.append(f"bench_scaling {sc}")
+    devices = ([b["detail"]["device"], lr["detail"]["device"], sc["device"]]
+               + [r["device"] for r in js["bench_render"]])
+    if any(d != card for d in devices):
+        problems.append(f"devices {devices}, card {card}")
+    if problems:
+        raise AssertionError("bench_clis: " + "; ".join(problems))
+    say("bench_clis", seconds=json.dumps(seconds).replace(" ", ""),
+        bench_step_ms=b["detail"]["step_ms"], bench_loss=b["detail"]["loss"],
+        bench_instances=b["detail"]["instances"],
+        render_ms=json.dumps({r["f_dim"]: r["render_ms"]
+                              for r in js["bench_render"]}).replace(" ", ""),
+        profile_step_span=text.split("step span: ")[1].split(" ms")[0],
+        profile_idle=text.split("idle share ")[1].split()[0],
+        longrun_ratio=lr["value"],
+        longrun_detail=json.dumps(lr["detail"]).replace(" ", ""),
+        scaling_step_ms=sc["step_ms"], forward_launches=launches[0],
+        backward_launches=launches[1])
+    return launches
 
 
 # the compressed schedule of the train_loop phase
@@ -2585,8 +2759,7 @@ def phase_encoders(dev, params, state):
 
     # segment_time: an embedding rendered from the serve scene
     decoder = init_decoder(F_DIM, 256, seed=1, device=dev)
-    cam = camera(orbit_view(0), WIDTH, HEIGHT, math.tan(0.6), math.tan(0.45),
-                 dev)
+    cam = bench_camera(WIDTH, HEIGHT, dev)
     with torch.inference_mode():
         out = renderer.render(params, state, cam)
         rendered = apply_decoder(decoder, out.feature).permute(2, 0, 1)
@@ -2793,19 +2966,15 @@ def write_profile(out_dir, name, fn) -> float:
     """Profile fn() into DIR/name; returns the device-busy ms it recorded
     (the sum of every op's own device time)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=30)
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
     with open(os.path.join(out_dir, name), "w") as f:
         f.write(table)
-    # the device's own events (kernels, copies), as the table's footer sums
-    return sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
+    return device_busy_ms(prof)
 
 
 def main(argv=None) -> int:
@@ -2887,10 +3056,14 @@ def main(argv=None) -> int:
         full_mm, bwd_mm = phase_kernel_alpha_full(dev, params, state,
                                                   gt_image, gt_feature)
     del params, state, gt_image, gt_feature
+    if want("kernel_wide"):
+        wide = phase_kernel_wide(dev)
     if want("setup"):
         phase_setup()
     if want("train"):
         train_fwd, train_bwd = phase_train(dev, args.profile)
+    if want("bench_clis"):
+        clis_fwd, clis_bwd = phase_bench_clis()
     if (want("kernel_loop") or want("train_loop") or want("train_batch")
             or want("train_shard")):
         t0 = time.perf_counter()
@@ -2932,23 +3105,26 @@ def main(argv=None) -> int:
              source=src + "raster_forward.cu", replaces=tpu + "192",
              launches=serve_launches + batch_launches[0] + train_fwd
              + loop[0] + batch_launches_train[0] + shard_launches[0]
-             + viewer_launches, **full,
+             + viewer_launches + clis_fwd, **full,
              library_ms=None,
-             **at_loop[("fwd", False)], **at_batch[False]),
+             **at_loop[("fwd", False)], **at_batch[False],
+             **wide[("fwd", False)]),
         dict(name="raster_backward", route="cuda",
              source=src + "raster_backward.cu", replaces=tpu + "495",
              launches=train_bwd + loop[1] + batch_launches_train[1]
-             + shard_launches[1], **bwd,
+             + shard_launches[1] + clis_bwd, **bwd,
              library_ms=None, **at_loop[("bwd", False)],
-             **at_batch4[False]),
+             **at_batch4[False], **wide[("bwd", False)]),
         dict(name="raster_forward_alpha_mm", route="cuda",
              source=src + "raster_forward.cu", replaces=tpu + "302",
              launches=batch_launches[1] + loop_mm[0], **full_mm,
-             library_ms=None, **at_loop[("fwd", True)], **at_batch[True]),
+             library_ms=None, **at_loop[("fwd", True)], **at_batch[True],
+             **wide[("fwd", True)]),
         dict(name="raster_backward_alpha_mm", route="cuda",
              source=src + "raster_backward.cu", replaces=tpu + "671",
              launches=loop_mm[1], **bwd_mm, library_ms=None,
-             **at_loop[("bwd", True)], **at_batch4[True])]}))
+             **at_loop[("bwd", True)], **at_batch4[True],
+             **wide[("bwd", True)])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

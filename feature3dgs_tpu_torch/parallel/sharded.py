@@ -66,32 +66,50 @@ from feature3dgs_tpu_torch.train import losses as L
 
 
 class Mesh:
-    """A ("data", "tile") mesh over the ``torch.distributed`` world: rank r
-    sits at (r // n_tile, r % n_tile), as the JAX package reshapes its
-    device list. ``shape`` maps each axis name to its size. The ranks of
-    one data row share a tile-axis process group; at world size 1 there is
-    no process group at all."""
+    """A ("data", "tile") mesh over the ``torch.distributed`` world, or over
+    the ranks ``ranks`` of it (in mesh order; the JAX package's ``devices``
+    argument): mesh rank r sits at (r // n_tile, r % n_tile), as the JAX
+    package reshapes its device list. ``shape`` maps each axis name to its
+    size. The ranks of one data row share a tile-axis process group, and a
+    mesh over part of the world has a group of its own (``group``; None is
+    the whole world). Building one is a collective: every rank of the world
+    builds it, with the same arguments, members or not (``member``). A
+    mesh of one rank holds no process group at all."""
 
-    def __init__(self, shape: Sequence[int]):
+    def __init__(self, shape: Sequence[int],
+                 ranks: Sequence[int] | None = None):
         if len(shape) != 2:
             raise ValueError(f"a mesh has the axes ('data', 'tile'), got a "
                              f"shape of {len(shape)}: {tuple(shape)}")
         n_data, n_tile = (int(x) for x in shape)
         world = dist.get_world_size() if dist.is_initialized() else 1
-        if n_data < 1 or n_tile < 1 or n_data * n_tile != world:
-            raise ValueError(f"mesh shape ({n_data}, {n_tile}) needs a world "
-                             f"size of {n_data * n_tile}, this one has {world}")
+        if ranks is None:
+            ranks = list(range(world))
+            if n_data < 1 or n_tile < 1 or n_data * n_tile != world:
+                raise ValueError(f"mesh shape ({n_data}, {n_tile}) needs a "
+                                 f"world size of {n_data * n_tile}, this one "
+                                 f"has {world}")
+        ranks = [int(r) for r in ranks]
+        if (n_data < 1 or n_tile < 1 or n_data * n_tile != len(ranks)
+                or len(set(ranks)) != len(ranks)
+                or not all(0 <= r < world for r in ranks)):
+            raise ValueError(f"mesh shape ({n_data}, {n_tile}) needs "
+                             f"{n_data * n_tile} distinct ranks of a world of "
+                             f"{world}, got {ranks}")
         self.shape = {"data": n_data, "tile": n_tile}
-        self.size = world
-        self.rank = dist.get_rank() if world > 1 else 0
-        self.data_index, self.tile_index = divmod(self.rank, n_tile)
-        self.tile_group = None
-        if world > 1:
-            # every rank creates every group, in the same order
+        self.size = len(ranks)
+        me = dist.get_rank() if world > 1 else 0
+        self.member = me in ranks
+        self.rank = ranks.index(me) if self.member else -1
+        self.data_index, self.tile_index = divmod(max(self.rank, 0), n_tile)
+        self.group = self.tile_group = None
+        if self.size > 1:
+            # every rank of the world creates every group, in the same order
+            if self.size < world:
+                self.group = dist.new_group(ranks)
             for d in range(n_data):
-                group = dist.new_group(list(range(d * n_tile,
-                                                  (d + 1) * n_tile)))
-                if d == self.data_index:
+                group = dist.new_group(ranks[d * n_tile:(d + 1) * n_tile])
+                if self.member and d == self.data_index:
                     self.tile_group = group
 
     def __repr__(self):
@@ -99,13 +117,16 @@ class Mesh:
                 f"rank={self.rank})")
 
 
-def make_mesh(shape: Sequence[int] | None = None) -> Mesh:
-    """A ("data", "tile") mesh over the current world (default shape: every
-    rank on the data axis). Call ``parallel.distributed.initialize`` first
-    when the world has more than one process."""
+def make_mesh(shape: Sequence[int] | None = None,
+              ranks: Sequence[int] | None = None) -> Mesh:
+    """A ("data", "tile") mesh over the current world, or over its ``ranks``
+    (default shape: every rank on the data axis). Call
+    ``parallel.distributed.initialize`` first when the world has more than
+    one process."""
     if shape is None:
-        shape = (dist.get_world_size() if dist.is_initialized() else 1, 1)
-    return Mesh(shape)
+        shape = (len(ranks) if ranks is not None else
+                 dist.get_world_size() if dist.is_initialized() else 1, 1)
+    return Mesh(shape, ranks)
 
 
 class _GatherTiles(torch.autograd.Function):
@@ -159,14 +180,14 @@ class _GatherRows(torch.autograd.Function):
         ctx.mesh = mesh
         x = x.contiguous()
         out = x.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
-        dist.all_gather_into_tensor(out, x)
+        dist.all_gather_into_tensor(out, x, group=mesh.group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
         out = g.new_empty((g.shape[0] // ctx.mesh.size,) + tuple(g.shape[1:]))
-        dist.reduce_scatter_tensor(out, g)
+        dist.reduce_scatter_tensor(out, g, group=ctx.mesh.group)
         return out, None
 
 
@@ -214,7 +235,7 @@ def _world_reduce_(tensors: list, mesh: Mesh, op=dist.ReduceOp.SUM):
     if mesh.size == 1 or not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=op)
+    dist.all_reduce(flat, op=op, group=mesh.group)
     for t, part in zip(tensors, torch.split(flat, [t.numel()
                                                    for t in tensors])):
         t.copy_(part.view_as(t))
@@ -461,7 +482,7 @@ def _route(dest, tile, depth, gid, cap_pair: int, mesh: Mesh):
     recv = stage
     if d_tot > 1:
         recv = torch.empty_like(stage)
-        dist.all_to_all_single(recv, stage)
+        dist.all_to_all_single(recv, stage, group=mesh.group)
     return recv, (cnt - cap_pair).clamp_min(0).amax()
 
 
@@ -700,6 +721,6 @@ def _all_rows(x, mesh: Mesh):
         return x
     src = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
     out = src.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, src)
+    dist.all_gather_into_tensor(out, src, group=mesh.group)
     return out.to(torch.bool) if x.dtype == torch.bool else out
 

@@ -43,7 +43,9 @@ def test_port_sources_import_nothing_of_jax():
     assert not bad, bad
     covered = {os.path.relpath(p, PORT) for p in _port_sources()}
     assert {"native/loader.py", "cli/parity_check.py", "cli/convert.py",
-            "cli/jpg2png.py", "ops/oracle.py"} <= covered
+            "cli/jpg2png.py", "ops/oracle.py", "bench_utils.py",
+            "cli/bench.py", "cli/bench_render.py", "cli/profile_step.py",
+            "cli/bench_longrun.py", "cli/bench_scaling.py"} <= covered
 
 
 def test_native_loader_opens_nothing_of_the_jax_package(tmp_path):
@@ -235,6 +237,22 @@ def _call_entry_point(name, tmp_path, **kw):
     if name == "load_lpips_weights":
         from feature3dgs_tpu_torch.metrics.lpips import load_lpips_weights
         return load_lpips_weights(str(tmp_path / "missing.npz"), **kw)
+    if name in BENCH_CLIS:
+        # the measuring CLIs resolve their device first; on the CPU they run
+        # at a tiny scene (module constants shrunk where the scene is one)
+        import importlib
+        module = importlib.import_module(
+            "feature3dgs_tpu_torch." + name.rsplit(".", 1)[0])
+        argv, sizes = BENCH_CLIS[name]
+        saved = {k: getattr(module, k) for k in sizes}
+        try:
+            for k, v in sizes.items():
+                setattr(module, k, v)
+            return module.main(argv + (["--device", kw["device"]] if kw
+                                       else []))
+        finally:
+            for k, v in saved.items():
+                setattr(module, k, v)
     if name.startswith("cli."):
         # each CLI resolves its device before it reads anything
         import importlib
@@ -260,6 +278,20 @@ def _call_entry_point(name, tmp_path, **kw):
                                      **kw)
 
 
+_TINY = ["--n_gauss", "50", "--width", "32", "--height", "16"]
+# the measuring CLIs: (argv, module constants) of a tiny CPU run
+BENCH_CLIS = {
+    "cli.bench.main": (["--f_dim", "4"], dict(N_GAUSS=50, W=32, H=16,
+                                              ITERS=1)),
+    "cli.bench_render.main": (_TINY + ["--f_dims", "4", "--iters", "1"], {}),
+    "cli.profile_step.main": (_TINY + ["--f_dim", "4", "--n", "1",
+                                       "--instance_capacity", "4096"], {}),
+    "cli.bench_longrun.main": (["--iters", "12", "--warmup", "7",
+                                "--densify_interval", "3", "--sync_every",
+                                "2"], dict(N_GAUSS=50, W=32, H=16, F_DIM=4)),
+    "cli.bench_scaling.main": (_TINY + ["--f_dim", "4", "--iters", "1",
+                                        "--instance_capacity", "4096"], {})}
+
 ENTRY_POINTS = ["load_gaussians_ply", "load_decoder_checkpoint",
                 "init_decoder", "create_from_pcd", "Camera.to_view",
                 "gaussians_from_numpy", "decoder_from_numpy",
@@ -272,7 +304,8 @@ ENTRY_POINTS = ["load_gaussians_ply", "load_decoder_checkpoint",
                 "cli.segmentation.main", "cli.segmentation_metric.main",
                 "cli.metrics.main", "cli.full_eval.main", "build_lseg",
                 "encoder_state_from_numpy", "ViewerCamera.to_view",
-                "cli.view.main", "cli.web_view.main", "cli.encode_lseg.main"]
+                "cli.view.main", "cli.web_view.main", "cli.encode_lseg.main",
+                *BENCH_CLIS]
 # the device is resolved first, then these fail on their missing input
 NEEDS_A_FILE = {"load_decoder_checkpoint": FileNotFoundError,
                 "load_checkpoint": FileNotFoundError,

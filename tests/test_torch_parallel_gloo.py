@@ -15,9 +15,11 @@ interpret mode), at the mesh step's bars (loss 2e-5 relative, parameters
 for the exchange, num_instances equal); the exchange also on a 1 x 4 mesh,
 where two tile ranks own only rows past the 2-row grid. The replicated ranks hold the same
 state; in the sharded modes each rank holds capacity / 4 rows and the
-shards, in rank order, are the JAX arrays.
+shards, in rank order, are the JAX arrays. Then the scaling CLI's meshes
+over the first 1, 2 and 4 of the 4 ranks, row-sharded.
 """
 import dataclasses
+import json
 import os
 import socket
 import subprocess
@@ -196,3 +198,22 @@ def test_2x2_row_sharded_steps_match_jax(run, mode):
     if mode != "sg_":
         np.testing.assert_array_equal(pts.gstate.max_radii2d.numpy(),
                                       np.asarray(jts2.gstate.max_radii2d))
+
+
+@pytest.mark.parametrize("flag", ["--shard_gaussians", "--shard_instances"])
+def test_meshes_over_part_of_the_world(flag):
+    """cli.bench_scaling on the 4 ranks: meshes over ranks [0] (the others
+    wait), [0, 1] (a process group of its own: gathers, reduce-scatters,
+    the exchange's all_to_all and the world sums run on it) and all 4, each
+    with the row-sharded flag; rank 0 prints the three rows, the others
+    nothing."""
+    outs = spawn_ranks(["--n_gauss", "400", "--width", "64", "--height",
+                        "48", "--f_dim", "4", "--instance_capacity", "8192",
+                        "--iters", "1", flag, "--device", "cpu"],
+                       module="feature3dgs_tpu_torch.cli.bench_scaling")
+    rows = [json.loads(ln) for ln in outs[0].splitlines()
+            if ln.startswith("{")]
+    assert [(r["devices"], r["mesh"]) for r in rows] == [
+        (1, [1, 1]), (2, [2, 1]), (4, [2, 2])]
+    assert all(r["step_ms"] > 0 for r in rows)
+    assert not any(o.strip() for o in outs[1:])

@@ -106,6 +106,19 @@ Phases, one line each; any failure raises and exits non-zero:
                scripts' JSON keys, finite numbers and loss, the card named
                in every line, no capacity growth in the long run's
                measured region.
+  micro        the stage micro-benchmarks' main in process at their full
+               default sizes, 2 timed calls a row: cli.micro_segsum (the
+               segment-sum at 552,960 x 256 -> 100,000 x 256 with a
+               quarter of the rows dropped; every variant against the
+               first at 1e-3, SegmentPlan's segment_reduce against
+               index_add_ among them), cli.micro_expand (the instance
+               expansion at 524,288 slots: six layouts bit-equal, the
+               port's expansion with and without its host read bit-equal
+               on the slots it keeps) and cli.micro_pack (the slab gathers
+               at 552,960 x 640, and the forward kernel's reads by id at F
+               = 512 on the training scene, whose launches count in the
+               kernels line); each returns 0, names the card first and
+               prints every row with a finite ms and bytes bound on gpu.
   parity       the parity CLI's scene (1,000 Gaussians, 208x160, SH degree
                3) at F = 8 and at F = 128: the CUDA route (one forward and
                one backward launch) in the exact and alpha_matmul modes
@@ -207,6 +220,8 @@ Phases, one line each; any failure raises and exits non-zero:
                JSON) and seeded text features; then the segmentation,
                segmentation-metric and metrics CLIs on their output; every
                exit code, the artifact trees, finite scores.
+Bounds are taken against the card's data-sheet peaks, bench_utils'
+PEAK_BYTES (3.35e12 B/s) and PEAK_F32_FLOPS (67e12 f32 operations/s).
 Then the card's name and power limit, a {"kernels": [...]} line (the two
 forward entries also with batch8_ms and batch8_bound_ms, the two backward
 entries with batch4_ms and batch4_bound_ms, all four with f256_ms,
@@ -235,14 +250,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from feature3dgs_tpu_torch.bench_utils import (bench_camera,  # noqa: E402
-                                               bench_scene, blocking_calls,
-                                               camera, card_line,
-                                               device_busy_ms, orbit_view)
+from feature3dgs_tpu_torch.bench_utils import (  # noqa: E402
+    PEAK_F32_FLOPS, bench_camera, bench_scene, blocking_calls,
+    bytes_bound_ms, camera, card_line, device_busy_ms, orbit_view)
 
-# H100 SXM data-sheet peaks (dense): f32 outside the tensor cores, HBM3
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # operations per (list entry, pixel) pair: alpha and its tests (~15), and
 # for a contributing pair T, the weight and RGB+depth (~16) plus 2F
 OPS_TESTED, OPS_CONTRIB = 15, 16
@@ -399,7 +410,7 @@ def backward_bound(stats, n_tiles, p, n_inst, f_dim=F_DIM):
 
 
 def bound_fields(n_bytes, ops):
-    bytes_ms, ops_ms = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    bytes_ms, ops_ms = bytes_bound_ms(n_bytes), ops / PEAK_F32_FLOPS * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -493,7 +504,7 @@ def phase_kernel_full(dev, params, state):
         pairs_contributing=stats["contributing"],
         entries_tested=stats["entries_tested"], gaussians_tested=n_tested,
         gaussians_contributing=n_contributing, bound_bytes=n_bytes,
-        bound_bytes_ms=f"{n_bytes / PEAK_BYTES * 1e3:.4f}", bound_ops=ops,
+        bound_bytes_ms=f"{bytes_bound_ms(n_bytes):.4f}", bound_ops=ops,
         bound_ops_ms=f"{ops / PEAK_F32_FLOPS * 1e3:.4f}",
         **{"design_" + k + "_bytes": v for k, v in design.items()})
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -898,7 +909,7 @@ def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
         pairs_contributing=stats["contributing"],
         entries_walked=stats["entries_walked"], gaussians_walked=n_walked,
         gaussians_contributing=n_contributing, bound_bytes=n_bytes,
-        bound_bytes_ms=f"{n_bytes / PEAK_BYTES * 1e3:.4f}", bound_ops=ops,
+        bound_bytes_ms=f"{bytes_bound_ms(n_bytes):.4f}", bound_ops=ops,
         bound_ops_ms=f"{ops / PEAK_F32_FLOPS * 1e3:.4f}",
         **{"design_" + k: v for k, v in design.items()})
     return {"max_abs_err": abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -1897,6 +1908,73 @@ def phase_bench_clis():
         longrun_detail=json.dumps(lr["detail"]).replace(" ", ""),
         scaling_step_ms=sc["step_ms"], forward_launches=launches[0],
         backward_launches=launches[1])
+    return launches
+
+
+# the rows each stage micro-benchmark prints, by CLI
+MICRO_ROWS = {
+    "micro_segsum": ("plain_at_add", "oob_drop", "spill_spread",
+                     "sorted_fused", "sorted_materialized",
+                     "segment_plan_sum"),
+    "micro_expand": ("v0_current", "v1_reshape_cols", "v2_transpose",
+                     "v3_reshape3d", "v4_packed4", "v5_gather2d",
+                     "port_expand", "port_expand_sized"),
+    "micro_pack": ("one_640", "split", "feat_only", "misc_only",
+                   "kernel_reads")}
+
+
+def phase_micro():
+    """The three stage micro-benchmarks' main in process at their full
+    default sizes, 2 timed calls a row: cli.micro_segsum (552,960 x 256
+    rows into 100,000, a quarter dropped: the variants held to one another
+    at 1e-3, among them SegmentPlan's segment_reduce, which leaves the
+    dropped rows past its segments, against index_add_), cli.micro_expand
+    (524,288 slots: the six layouts bit-equal, the port's expansion with
+    and without its host read bit-equal on the slots it keeps) and
+    cli.micro_pack (the four slab gathers at 552,960 x 640, bit-equal, and
+    the forward kernel's reads at F = 512, the training scene). Each
+    returns 0, opens with the card's line and prints every row with a
+    finite ms and bound on gpu. Returns the forward launches made."""
+    import contextlib
+    import io
+
+    from feature3dgs_tpu_torch.cli import micro_expand, micro_pack, micro_segsum
+    from feature3dgs_tpu_torch.ops import cuda_raster
+    mains = {"micro_segsum": micro_segsum.main,
+             "micro_expand": micro_expand.main, "micro_pack": micro_pack.main}
+    card = card_line()
+    problems, seconds, ms, bound = [], {}, {}, {}
+    cuda_raster.FORWARD_LAUNCHES = 0
+    for cli, main in mains.items():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(["--iters", "2"])
+        seconds[cli] = round(time.perf_counter() - t0, 1)
+        lines = buf.getvalue().splitlines()
+        if rc != 0 or not lines or lines[0] != card:
+            problems.append(f"{cli} rc={rc} {lines[:1]}")
+        for name in MICRO_ROWS[cli]:
+            row = next((ln.split() for ln in lines[1:]
+                        if ln.split()[:1] == [name] and ", gpu]" in ln), None)
+            if row is None:
+                problems.append(f"{cli}: no gpu row {name}")
+                continue
+            ms[name] = float(row[1])
+            bound[name] = float(row[row.index("bound") + 1])
+            if not (math.isfinite(ms[name]) and ms[name] > 0
+                    and math.isfinite(bound[name]) and bound[name] > 0):
+                problems.append(f"{cli}: {name} ms={ms[name]} "
+                                f"bound={bound[name]}")
+    launches = cuda_raster.FORWARD_LAUNCHES
+    if launches < 1:
+        problems.append("kernel_reads launched no forward kernel")
+    if problems:
+        raise AssertionError("micro: " + "; ".join(problems))
+    say("micro", seconds=json.dumps(seconds).replace(" ", ""),
+        ms=json.dumps(ms).replace(" ", ""),
+        bound_ms=json.dumps(bound).replace(" ", ""),
+        forward_launches=launches)
     return launches
 
 
@@ -3064,6 +3142,8 @@ def main(argv=None) -> int:
         train_fwd, train_bwd = phase_train(dev, args.profile)
     if want("bench_clis"):
         clis_fwd, clis_bwd = phase_bench_clis()
+    if want("micro"):
+        micro_fwd = phase_micro()
     if (want("kernel_loop") or want("train_loop") or want("train_batch")
             or want("train_shard")):
         t0 = time.perf_counter()
@@ -3105,7 +3185,7 @@ def main(argv=None) -> int:
              source=src + "raster_forward.cu", replaces=tpu + "192",
              launches=serve_launches + batch_launches[0] + train_fwd
              + loop[0] + batch_launches_train[0] + shard_launches[0]
-             + viewer_launches + clis_fwd, **full,
+             + viewer_launches + clis_fwd + micro_fwd, **full,
              library_ms=None,
              **at_loop[("fwd", False)], **at_batch[False],
              **wide[("fwd", False)]),

@@ -37,12 +37,14 @@ find the counterpart):
   native/    the C++ host helpers (3-NN, points3D.bin scan), built with
              the host's C++ compiler at first use
   bench_utils.py  step spans by CUDA events, profiler tables, bench.py's
-             scene: what the measuring CLIs and chip_smoke.py share
+             scene, the card's peaks: what the measuring CLIs and
+             chip_smoke.py share
   cli/       train, render, segmentation, segmentation_metric, metrics,
              full_eval, view, web_view, videos, encode_lseg, segment_time,
              parity_check, convert and jpg2png; the measuring CLIs bench,
-             bench_render, profile_step, bench_longrun and bench_scaling
-             (python -m feature3dgs_tpu_torch.cli.<name>)
+             bench_render, profile_step, bench_longrun and bench_scaling;
+             the stage micro-benchmarks micro_segsum, micro_expand and
+             micro_pack (python -m feature3dgs_tpu_torch.cli.<name>)
 """
 from __future__ import annotations
 

@@ -1,7 +1,10 @@
 """Measuring helpers shared by the bench CLIs (``cli/bench.py``,
 ``cli/bench_render.py``, ``cli/profile_step.py``, ``cli/bench_longrun.py``,
-``cli/bench_scaling.py``) and ``chip_smoke.py``; the port of
-``feature3dgs_tpu/bench_utils.py``.
+``cli/bench_scaling.py``), the stage micro-benchmarks
+(``cli/micro_segsum.py``, ``cli/micro_expand.py``, ``cli/micro_pack.py``)
+and ``chip_smoke.py``; the port of ``feature3dgs_tpu/bench_utils.py``.
+``PEAK_BYTES`` and ``PEAK_F32_FLOPS`` are the card's data-sheet peaks that
+every bound here is taken against.
 
 Timing: eager PyTorch queues work on the card's stream and returns, so a
 host clock without a synchronise measures the enqueue. ``profiled_step_ms``
@@ -34,6 +37,10 @@ import torch
 
 from feature3dgs_tpu_torch import default_device
 
+# H100 SXM data-sheet peaks (dense): f32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
 # bench.py's scene (bench.py:27-31) and camera (:95-103)
 N_GAUSS, F_DIM, WIDTH, HEIGHT = 100_000, 128, 1216, 800
 TAN_FOVX, TAN_FOVY = math.tan(0.6), math.tan(0.45)
@@ -52,6 +59,12 @@ def device_label(device: torch.device) -> str:
     """What a result line names as its device: the card's name and power
     limit, or "cpu"."""
     return card_line() if device.type == "cuda" else str(device)
+
+
+def bytes_bound_ms(n_bytes: int) -> float:
+    """The least milliseconds the card could take to move ``n_bytes`` of
+    device memory, at ``PEAK_BYTES``."""
+    return n_bytes / PEAK_BYTES * 1e3
 
 
 def platform(device: torch.device) -> str:

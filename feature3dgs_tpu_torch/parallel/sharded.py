@@ -74,7 +74,15 @@ class Mesh:
     mesh over part of the world has a group of its own (``group``; None is
     the whole world). Building one is a collective: every rank of the world
     builds it, with the same arguments, members or not (``member``). A
-    mesh of one rank holds no process group at all."""
+    mesh of one rank holds no process group at all.
+
+    A process group orders its members by global rank, whatever order
+    ``ranks`` has, and so do the blocks of its collectives. ``order`` and
+    ``tile_order`` hold the group position of each mesh rank of ``group``
+    and of this rank's ``tile_group`` (None where the two orders agree, as
+    for ascending ``ranks``); the collectives here put blocks back into
+    mesh order with them, so blocks come out in mesh order as the JAX
+    package's do."""
 
     def __init__(self, shape: Sequence[int],
                  ranks: Sequence[int] | None = None):
@@ -103,18 +111,48 @@ class Mesh:
         self.rank = ranks.index(me) if self.member else -1
         self.data_index, self.tile_index = divmod(max(self.rank, 0), n_tile)
         self.group = self.tile_group = None
+        self.order = self.tile_order = None
         if self.size > 1:
+            self.order = _group_positions(ranks)
             # every rank of the world creates every group, in the same order
             if self.size < world:
                 self.group = dist.new_group(ranks)
             for d in range(n_data):
-                group = dist.new_group(ranks[d * n_tile:(d + 1) * n_tile])
+                row = ranks[d * n_tile:(d + 1) * n_tile]
+                group = dist.new_group(row)
                 if self.member and d == self.data_index:
                     self.tile_group = group
+                    self.tile_order = _group_positions(row)
 
     def __repr__(self):
         return (f"Mesh(data={self.shape['data']}, tile={self.shape['tile']}, "
                 f"rank={self.rank})")
+
+
+def _group_positions(members: list) -> list | None:
+    """Each member's position in a process group of ``members`` (which
+    sorts them), or None where that is their own order."""
+    pos = [sorted(members).index(r) for r in members]
+    return None if pos == sorted(pos) else pos
+
+
+def _mesh_blocks(x, order):
+    """The equal blocks of ``x`` along dim 0, as a group's collective
+    delivers them (by group position), in mesh order."""
+    if order is None:
+        return x
+    parts = x.tensor_split(len(order))
+    return torch.cat([parts[i] for i in order])
+
+
+def _group_blocks(x, order):
+    """The inverse of ``_mesh_blocks``: mesh-ordered blocks put into group
+    order, as a split collective hands them out."""
+    if order is None:
+        return x
+    parts = x.tensor_split(len(order))
+    return torch.cat([parts[m] for m in sorted(range(len(order)),
+                                               key=order.__getitem__)])
 
 
 def make_mesh(shape: Sequence[int] | None = None,
@@ -141,7 +179,8 @@ class _GatherTiles(torch.autograd.Function):
         ctx.mesh, ctx.rows = mesh, x.shape[0]
         parts = [torch.empty_like(x) for _ in range(mesh.shape["tile"])]
         dist.all_gather(parts, x.contiguous(), group=mesh.tile_group)
-        return torch.cat(parts)
+        order = mesh.tile_order or range(len(parts))
+        return torch.cat([parts[i] for i in order])
 
     @staticmethod
     def backward(ctx, g):
@@ -170,7 +209,7 @@ class _SumTiles(torch.autograd.Function):
 
 
 class _GatherRows(torch.autograd.Function):
-    """all_gather over the whole world, in rank order (the JAX package's
+    """all_gather over the mesh, in mesh-rank order (the JAX package's
     flat index data_index * n_tile + tile_index), concatenated along dim 0.
     Backward: a reduce-scatter with a sum, so each rank gets the sum of
     every rank's cotangent of its own rows: the transpose of the gather."""
@@ -181,11 +220,11 @@ class _GatherRows(torch.autograd.Function):
         x = x.contiguous()
         out = x.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
         dist.all_gather_into_tensor(out, x, group=mesh.group)
-        return out
+        return _mesh_blocks(out, mesh.order)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous()
+        g = _group_blocks(g.contiguous(), ctx.mesh.order)
         out = g.new_empty((g.shape[0] // ctx.mesh.size,) + tuple(g.shape[1:]))
         dist.reduce_scatter_tensor(out, g, group=ctx.mesh.group)
         return out, None
@@ -482,7 +521,9 @@ def _route(dest, tile, depth, gid, cap_pair: int, mesh: Mesh):
     recv = stage
     if d_tot > 1:
         recv = torch.empty_like(stage)
-        dist.all_to_all_single(recv, stage, group=mesh.group)
+        dist.all_to_all_single(recv, _group_blocks(stage, mesh.order),
+                               group=mesh.group)
+        recv = _mesh_blocks(recv, mesh.order)
     return recv, (cnt - cap_pair).clamp_min(0).amax()
 
 
@@ -715,12 +756,13 @@ def gather_state(ts, mesh: Mesh):
 
 
 def _all_rows(x, mesh: Mesh):
-    """Every rank's rows of ``x`` in rank order, without autograd (bool
+    """Every rank's rows of ``x`` in mesh-rank order, without autograd (bool
     tensors travel as uint8)."""
     if mesh.size == 1:
         return x
     src = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
     out = src.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=mesh.group)
+    out = _mesh_blocks(out, mesh.order)
     return out.to(torch.bool) if x.dtype == torch.bool else out
 

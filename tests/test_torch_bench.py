@@ -3,8 +3,9 @@
 ``cli.bench_render``, ``cli.profile_step``, ``cli.bench_longrun`` and
 ``cli.bench_scaling`` against ``bench.py`` and ``scripts/``: the scenes'
 arrays, the printed keys and table format at tiny scenes, the long run's
-span rule, a 2-rank gloo scaling run, and every option of the five JAX
-programs parsing in the port's CLIs."""
+span rule, a 2-rank gloo scaling run, and every option of these five JAX
+programs and of the three stage micro-benchmarks parsing in the port's
+CLIs (tests/test_torch_micro.py holds the micro-benchmarks' numbers)."""
 import ast
 import importlib.util
 import json
@@ -22,6 +23,9 @@ from feature3dgs_tpu_torch.cli import bench as bench_cli
 from feature3dgs_tpu_torch.cli import bench_longrun as longrun_cli
 from feature3dgs_tpu_torch.cli import bench_render as render_cli
 from feature3dgs_tpu_torch.cli import bench_scaling as scaling_cli
+from feature3dgs_tpu_torch.cli import micro_expand as expand_cli
+from feature3dgs_tpu_torch.cli import micro_pack as pack_cli
+from feature3dgs_tpu_torch.cli import micro_segsum as segsum_cli
 from feature3dgs_tpu_torch.cli import profile_step as profile_cli
 from feature3dgs_tpu_torch.model.gaussians import GaussianParams
 
@@ -304,16 +308,27 @@ def test_bench_scaling_cost_only_prints_the_structure(capsys):
 PROGRAMS = {"bench.py": bench_cli, "scripts/bench_render.py": render_cli,
             "scripts/profile_step.py": profile_cli,
             "scripts/bench_longrun.py": longrun_cli,
-            "scripts/bench_scaling.py": scaling_cli}
+            "scripts/bench_scaling.py": scaling_cli,
+            "scripts/micro_segsum.py": segsum_cli,
+            "scripts/micro_expand.py": expand_cli,
+            "scripts/micro_pack.py": pack_cli}
 
 
 @pytest.mark.parametrize("rel", sorted(PROGRAMS))
 def test_every_script_flag_parses_in_the_port(rel):
     """Each option string of the JAX program's parser (caught at its
     parse_args) parses in the port's CLI of the same name, which also
-    takes --device."""
-    theirs = _parser_of(_script(rel).main)
+    takes --device. scripts/micro_pack.py has no parser (its sizes are
+    module constants): the port's takes --device and --iters (the
+    script's n=3)."""
     ours = _parser_of(PROGRAMS[rel].main)
+    if rel == "scripts/micro_pack.py":
+        assert _script(rel).main.__code__.co_argcount == 0
+        args = ours.parse_args(["--device", "cpu", "--iters", "5"])
+        assert (args.device, args.iters) == ("cpu", 5)
+        assert ours.parse_args([]).iters == 3
+        return
+    theirs = _parser_of(_script(rel).main)
     options = [(a, o) for a in theirs._actions for o in a.option_strings
                if o not in ("-h", "--help")]
     assert options

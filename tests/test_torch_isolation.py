@@ -45,7 +45,9 @@ def test_port_sources_import_nothing_of_jax():
     assert {"native/loader.py", "cli/parity_check.py", "cli/convert.py",
             "cli/jpg2png.py", "ops/oracle.py", "bench_utils.py",
             "cli/bench.py", "cli/bench_render.py", "cli/profile_step.py",
-            "cli/bench_longrun.py", "cli/bench_scaling.py"} <= covered
+            "cli/bench_longrun.py", "cli/bench_scaling.py",
+            "cli/micro_segsum.py", "cli/micro_expand.py",
+            "cli/micro_pack.py"} <= covered
 
 
 def test_native_loader_opens_nothing_of_the_jax_package(tmp_path):
@@ -290,7 +292,12 @@ BENCH_CLIS = {
                                 "--densify_interval", "3", "--sync_every",
                                 "2"], dict(N_GAUSS=50, W=32, H=16, F_DIM=4)),
     "cli.bench_scaling.main": (_TINY + ["--f_dim", "4", "--iters", "1",
-                                        "--instance_capacity", "4096"], {})}
+                                        "--instance_capacity", "4096"], {}),
+    "cli.micro_segsum.main": (["--l", "2048", "--n", "100", "--c", "4",
+                               "--iters", "1"], {}),
+    "cli.micro_expand.main": (["--l", "2048", "--n", "100", "--iters", "1"],
+                              {}),
+    "cli.micro_pack.main": (_TINY + ["--iters", "1"], dict(L=2048, N=100))}
 
 ENTRY_POINTS = ["load_gaussians_ply", "load_decoder_checkpoint",
                 "init_decoder", "create_from_pcd", "Camera.to_view",

@@ -52,22 +52,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn_ranks(args: list, local_world: int = WORLD,
-                module: str = "tests.torch_parallel_worker") -> list:
-    """Run ``python -m <module> *args`` as WORLD gloo ranks on the CPU
-    (``local_world`` ranks a host, torchrun's variables set); fail on a
-    rank's error or on one still running after TIMEOUT_S. Returns each
-    rank's standard output."""
+def spawn_ranks(args: list, local_world: int | None = None,
+                module: str = "tests.torch_parallel_worker",
+                world: int = WORLD) -> list:
+    """Run ``python -m <module> *args`` as ``world`` gloo ranks on the CPU
+    (``local_world`` ranks a host, default all, torchrun's variables set);
+    fail on a rank's error or on one still running after TIMEOUT_S. Returns
+    each rank's standard output."""
+    local_world = world if local_world is None else local_world
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
-               WORLD_SIZE=str(WORLD), LOCAL_WORLD_SIZE=str(local_world),
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(local_world),
                OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-m", module, *args],
         cwd=ROOT, env={**env, "RANK": str(r),
                        "LOCAL_RANK": str(r % local_world)},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(WORLD)]
+        for r in range(world)]
     failed, outs = [], []
     try:
         for r, proc in enumerate(procs):

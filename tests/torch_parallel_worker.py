@@ -2,6 +2,7 @@
 
     python -m tests.torch_parallel_worker INPUTS.npz OUT_DIR
     python -m tests.torch_parallel_worker trainers INPUTS.npz OUT_DIR
+    python -m tests.torch_parallel_worker mesh_order OUT_DIR
 
 with torchrun's variables set (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT).
 Joins a gloo process group on the CPU, builds a 2 x 2 ("data", "tile")
@@ -11,8 +12,9 @@ inputs' B cameras in each mode: replicated, with this rank's row shard
 (``shard_gaussians``) and through the instance exchange (``shard_gaussians``
 and ``shard_instances``), the exchange also on a 1 x 4 mesh. Writes what this rank holds (its shard in the
 sharded modes) to OUT_DIR/rank{RANK}.npz. ``trainers`` runs the two
-trainers of tests/test_torch_multihost.py (``trainers`` below). Imports the
-port and torch only.
+trainers of tests/test_torch_multihost.py (``trainers`` below);
+``mesh_order`` the collectives of tests/test_torch_mesh_order.py on 2
+ranks. Imports the port and torch only.
 """
 from __future__ import annotations
 
@@ -183,8 +185,81 @@ def trainers(inputs: str, out_dir: str) -> None:
     torch.distributed.destroy_process_group()
 
 
+def cotangent(rank: int, shape: tuple) -> torch.Tensor:
+    """The cotangent global rank ``rank`` hands a collective's backward in
+    ``mesh_order``: distinct on every rank and entry."""
+    n = int(np.prod(shape))
+    return (torch.arange(n, dtype=torch.float32) + 1000.0 * (rank + 1)
+            ).reshape(shape)
+
+
+def mesh_order(out_dir: str) -> None:
+    """Two ranks, each mesh over ranks [0, 1] and over [1, 0]: on a 2 x 1
+    mesh a 4-row TrainState through ``shard_state`` and ``gather_state``
+    (``_all_rows``), its xyz shard through ``_GatherRows`` forward and
+    backward (a reduce-scatter of ``cotangent``), and one instance a
+    (source, destination) pair through the exchange's ``_route``; on a
+    1 x 2 mesh a [3, 2] block through ``_GatherTiles`` forward and
+    backward. Writes what this rank got to OUT_DIR/order{RANK}.npz."""
+    torch.set_num_threads(1)
+    from feature3dgs_tpu_torch import convert
+    from feature3dgs_tpu_torch.parallel.distributed import initialize
+    from feature3dgs_tpu_torch.parallel.sharded import (Mesh, _GatherRows,
+                                                        _GatherTiles, _route,
+                                                        gather_state,
+                                                        shard_state)
+    assert initialize(device="cpu")
+    me = torch.distributed.get_rank()
+    xyz = np.arange(12, dtype=np.float32).reshape(4, 3)
+    fields = {k: xyz if k == "xyz" else np.zeros((4, 1), np.float32)
+              for k in FIELDS}
+    zeros = np.zeros(4, np.float32)
+    ts = convert.train_state_from_numpy({
+        "params": fields,
+        "gstate": {"alive": np.array([True, False, True, True]),
+                   "max_radii2d": zeros, "xyz_gradient_accum": zeros,
+                   "denom": zeros, "active_sh_degree": 0,
+                   "spatial_lr_scale": 1.0},
+        "adam": {"mu": fields, "nu": fields, "step": np.int32(0)}}, "cpu")
+    out = {}
+    for key, ranks in (("up_", [0, 1]), ("down_", [1, 0])):
+        mesh = Mesh((2, 1), ranks=ranks)
+        shard = shard_state(ts, mesh)
+        whole = gather_state(shard, mesh)
+        out[key + "mesh_rank"] = mesh.rank
+        out[key + "shard"] = shard.params.xyz.numpy()
+        out[key + "gathered"] = whole.params.xyz.numpy()
+        out[key + "alive"] = whole.gstate.alive.numpy()
+        rows = shard.params.xyz.clone().requires_grad_()
+        full = _GatherRows.apply(rows, mesh)
+        full.backward(cotangent(me, tuple(full.shape)))
+        out[key + "gather_rows"] = full.detach().numpy()
+        out[key + "scatter_rows"] = rows.grad.numpy()
+        # one instance from this mesh rank to each: tile 10 * source +
+        # destination, id = source
+        dest = torch.arange(2)
+        recv, dropped = _route(dest, 10 * mesh.rank + dest,
+                               torch.ones(2), torch.full((2,), mesh.rank),
+                               2, mesh)
+        out[key + "route"] = recv.numpy()
+        out[key + "route_dropped"] = int(dropped)
+
+        mesh = Mesh((1, 2), ranks=ranks)
+        block = (torch.arange(6, dtype=torch.float32).reshape(3, 2)
+                 + 100.0 * mesh.tile_index).requires_grad_()
+        tiles = _GatherTiles.apply(block, block, mesh)
+        tiles.backward(cotangent(me, tuple(tiles.shape)))
+        out[key + "tile_index"] = mesh.tile_index
+        out[key + "gather_tiles"] = tiles.detach().numpy()
+        out[key + "scatter_tiles"] = block.grad.numpy()
+    np.savez(os.path.join(out_dir, f"order{me}.npz"), **out)
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "trainers":
         trainers(*sys.argv[2:4])
+    elif sys.argv[1] == "mesh_order":
+        mesh_order(sys.argv[2])
     else:
         main(*sys.argv[1:3])

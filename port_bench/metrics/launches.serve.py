@@ -1,0 +1,10 @@
+"""Device kernels a view in the traced window (copies and memsets left
+out): the host's dispatch work."""
+from port_bench.harness import trace
+
+
+def read(ctx):
+    t = ctx.get("traced")
+    if ctx["kind"] != "serve" or t is None or not t["intervals"]:
+        return None
+    return len(trace.kernels(t["intervals"])) / t["units"]

@@ -39,6 +39,9 @@ find the counterpart):
   bench_utils.py  step spans by CUDA events, profiler tables, bench.py's
              scene, the card's peaks: what the measuring CLIs and
              chip_smoke.py share
+  tracing.py the program's own spans and counters (stages, host waits,
+             instances), recorded while a profiler runs or under
+             tracing.recording()
   cli/       train, render, segmentation, segmentation_metric, metrics,
              full_eval, view, web_view, videos, encode_lseg, segment_time,
              parity_check, convert and jpg2png; the measuring CLIs bench,

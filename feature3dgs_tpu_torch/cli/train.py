@@ -13,7 +13,10 @@ from such a file (either package's). Steps between sync points
 (``--sync_every``) read nothing from the device. The first SIGTERM or SIGINT
 finishes the step in flight, writes a full checkpoint and exits; a second
 one ends the process at once. ``--profile DIR`` writes a ``torch.profiler``
-table and trace of iterations 20-30.
+table and trace of iterations 20-30 (``train_profile.txt``,
+``train_trace.json``) and, beside them, ``train_spans.json``: the summary of
+the program's own spans and counters over the same iterations
+(``feature3dgs_tpu_torch/tracing.py``).
 
 Runs on the CUDA card (``--device cpu`` for the plain versions of the
 kernels). ``--cameras_per_step B`` trains B cameras a step (one sort, one
@@ -92,7 +95,8 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
                         help="write a torch.profiler table and chrome trace "
-                             "of iterations 20-30 into DIR")
+                             "of iterations 20-30 into DIR, and the program's "
+                             "spans and counters as train_spans.json")
     parser.add_argument("--disable_viewer", action="store_true",
                         help="do not serve the SIBR remote viewer")
     parser.add_argument("--device", default=None,
@@ -463,6 +467,7 @@ def _start_profile():
 
 
 def _stop_profile(prof, out_dir: str, device):
+    from feature3dgs_tpu_torch import tracing
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof.__exit__(None, None, None)
@@ -472,6 +477,10 @@ def _stop_profile(prof, out_dir: str, device):
     with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by=sort_by, row_limit=40))
     prof.export_chrome_trace(os.path.join(out_dir, "train_trace.json"))
+    session = tracing.last_session()
+    if session is not None:
+        with open(os.path.join(out_dir, "train_spans.json"), "w") as f:
+            json.dump(session.summary(), f, indent=1)
     print(f"profiler trace (~iterations 20-30) -> {out_dir}")
 
 

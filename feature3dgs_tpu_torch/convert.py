@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from feature3dgs_tpu_torch import default_device
+from feature3dgs_tpu_torch import default_device, tracing
 from feature3dgs_tpu_torch.core.projection import CameraView
 from feature3dgs_tpu_torch.model.gaussians import GaussianParams, GaussianState
 from feature3dgs_tpu_torch.model.optim import AdamState, TensorAdamState
@@ -82,6 +82,7 @@ def decoder_from_numpy(params: dict[str, np.ndarray], device=None) -> dict:
 def camera_from_numpy(view, proj, campos, tan_fovx, tan_fovy, width: int,
                       height: int, device=None) -> CameraView:
     device = default_device(device)
+    tracing.count("host_wait.camera_upload", 5)
     return CameraView(
         view=_f32(view, device), proj=_f32(proj, device),
         campos=_f32(campos, device),

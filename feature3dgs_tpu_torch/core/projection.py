@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from feature3dgs_tpu_torch import tracing
 from feature3dgs_tpu_torch.core import sh as sh_lib
 
 
@@ -122,6 +123,7 @@ def project_points(means3d: torch.Tensor, cam: CameraView):
 
 def ndc_to_pixel(ndc_xy: torch.Tensor, width: int, height: int) -> torch.Tensor:
     """((v+1)*S - 1) / 2 per axis."""
+    tracing.count("host_wait.ndc_to_pixel")
     wh = torch.tensor([width, height], dtype=ndc_xy.dtype, device=ndc_xy.device)
     return ((ndc_xy + 1.0) * wh - 1.0) * 0.5
 
@@ -189,6 +191,7 @@ def tile_rect(xy: torch.Tensor, radius: torch.Tensor, grid_x: int, grid_y: int,
     """Tile-grid bounding rectangle per Gaussian: (rect_min [N,2] int32,
     rect_max [N,2] int32), max exclusive; area 0 means no tiles touched."""
     r = radius[:, None]
+    tracing.count("host_wait.tile_rect", 2)
     tile = torch.tensor([tile_w, tile_h], dtype=xy.dtype, device=xy.device)
     lo = torch.floor((xy - r) / tile)
     hi = torch.floor((xy + r + (tile - 1)) / tile)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from feature3dgs_tpu_torch import default_device
+from feature3dgs_tpu_torch import default_device, tracing
 
 
 def init_decoder(feature_in: int, feature_out: int, seed: int = 0,
@@ -28,6 +28,7 @@ def init_decoder(feature_in: int, feature_out: int, seed: int = 0,
             "b": torch.from_numpy(b).to(device)}
 
 
+@tracing.spanned("decoder")
 def apply_decoder(params: dict, fmap: torch.Tensor) -> torch.Tensor:
     """[..., F_in] -> [..., F_out]: one product with the bias added in the
     same call."""

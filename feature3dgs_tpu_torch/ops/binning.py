@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from feature3dgs_tpu_torch import tracing
+
 
 class TileGrid(NamedTuple):
     """Tile-grid geometry for an image."""
@@ -78,6 +80,8 @@ def expand_instances(rect_min: torch.Tensor, rect_max: torch.Tensor,
     # incl is monotone, so the Gaussians that fit are a prefix per camera
     kept = torch.where(incl <= instance_capacity, areas,
                        torch.zeros_like(areas)).reshape(-1)
+    # the output's length and the repeats' sign are read from the card
+    tracing.count("host_wait.expand_instances", 2)
     row = torch.repeat_interleave(
         torch.arange(kept.shape[0], device=areas.device), kept)
     local = (torch.arange(row.shape[0], device=areas.device)
@@ -90,6 +94,7 @@ def expand_instances(rect_min: torch.Tensor, rect_max: torch.Tensor,
     return row, tile, areas, total
 
 
+@tracing.spanned("raster.binning")
 def bin_gaussians_batch(rect_min: torch.Tensor, rect_max: torch.Tensor,
                         depth: torch.Tensor, valid: torch.Tensor,
                         grid: TileGrid, *,
@@ -111,6 +116,8 @@ def bin_gaussians_batch(rect_min: torch.Tensor, rect_max: torch.Tensor,
     key = (tile << 32) | depth_bits[row]
     _, order = torch.sort(key, stable=True)
     gid_sorted = (row[order] % max(n, 1)).to(torch.int32)
+    # bincount reads the ids' least and greatest from the card
+    tracing.count("host_wait.bincount", 2)
     counts = torch.bincount(tile, minlength=b * grid.num_tiles)
     starts = torch.cumsum(counts, 0) - counts
     return BinningResult(
@@ -154,8 +161,10 @@ def sort_instances(tile_key: torch.Tensor, depth_key: torch.Tensor,
     depth_bits = depth_key.to(torch.float32).view(torch.int32).long()
     key = (tile_key.long() << 32) | depth_bits
     _, order = torch.sort(key, stable=True)
+    tracing.count("host_wait.bincount", 2)
     counts = torch.bincount(tile_key.long(), minlength=t_tiles + 1)[:t_tiles]
     starts = torch.cumsum(counts, 0) - counts
+    tracing.count("host_wait.sort_instances")
     n_valid = int(counts.sum())
     return (gid[order[:n_valid]].to(torch.int32), starts.to(torch.int32),
             counts.to(torch.int32))
@@ -173,6 +182,9 @@ def tile_slices(gid_sorted: torch.Tensor, tile_starts: torch.Tensor,
     starts = torch.cat([tile_starts.long(), tile_starts.new_full(
         (1,), n_inst, dtype=torch.long)])
     cuts = [t for r in ranges for t in r]
+    if cuts:
+        # the cuts' upload from pageable memory and the ends' read
+        tracing.count("host_wait.tile_slices", 2)
     ends = starts[torch.tensor(cuts, dtype=torch.long,
                                device=starts.device)].tolist() if cuts else []
     out = []

@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from feature3dgs_tpu_torch import tracing
 from feature3dgs_tpu_torch.ops.binning import TileGrid
 from feature3dgs_tpu_torch.ops.composite import BackwardRows, CompositeOutput
 
@@ -269,6 +270,7 @@ def check_tile_lists(gid_sorted: torch.Tensor, tile_starts: torch.Tensor,
     if n_inst:
         lo, hi = torch.aminmax(gid_sorted)
         bad = bad | (lo < 0) | (hi >= n_gauss)
+    tracing.count("host_wait.check_tile_lists")
     if bool(bad):
         raise ValueError(
             "tile lists out of range: each [tile_start, tile_start + "
@@ -283,6 +285,7 @@ def check_tile_partition(tile_starts: torch.Tensor, tile_counts: torch.Tensor,
     the backward kernel writes one row per list entry and no other."""
     counts = tile_counts.long()
     bad = (tile_starts.long() != torch.cumsum(counts, 0) - counts).any()
+    tracing.count("host_wait.check_tile_partition")
     if bool(bad | (counts.sum() != n_inst)):
         raise ValueError("tile lists must cover the entries of gid_sorted in "
                          "order, each exactly once")

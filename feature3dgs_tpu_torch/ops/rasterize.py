@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from feature3dgs_tpu_torch import tracing
 from feature3dgs_tpu_torch.core import projection as proj_lib
 from feature3dgs_tpu_torch.ops import binning as binning_lib
 from feature3dgs_tpu_torch.ops.binning import TileGrid
@@ -139,6 +140,7 @@ def mark_visible(means3d: torch.Tensor, cam: proj_lib.CameraView) -> torch.Tenso
     return in_frustum
 
 
+@tracing.spanned("raster.preprocess")
 def _prep_view(means3d, opacities, cam, grid, *, scales, rotations,
                cov3d_precomp, shs, sh_degree, colors_precomp, scale_modifier,
                ndc_offset, active_mask):
@@ -151,6 +153,7 @@ def _prep_view(means3d, opacities, cam, grid, *, scales, rotations,
         scale_modifier=scale_modifier)
     xy = pre.xy
     if ndc_offset is not None:
+        tracing.count("host_wait.ndc_offset_scale")
         wh = torch.tensor([cam.width, cam.height], dtype=xy.dtype,
                           device=xy.device)
         xy = xy + ndc_offset * wh * 0.5
@@ -193,6 +196,7 @@ def composite_inputs(means3d, opacities, semantic_features, cam, *,
     bins = binning_lib.bin_gaussians(
         rect_min, rect_max, pre.depth.detach(), valid, grid,
         instance_capacity=config.instance_capacity_or_default)
+    tracing.count_tensor("raster.instances", bins.total)
     args = (xy.contiguous(), pre.conic.contiguous(),
             pre.opacity.contiguous(), pre.rgb.contiguous(),
             pre.depth.contiguous(), semantic_features.contiguous(),
@@ -222,12 +226,13 @@ class _Composite(torch.autograd.Function):
         args = (xy, conic, opacity, rgb, depth, feat, gid_sorted,
                 tile_starts, tile_counts, grid)
         where = dict(tile_base=tile_base, n_per_camera=n_per_camera)
-        if _use_kernels(config, xy):
-            out = raster_forward_cuda(*args, **where,
+        with tracing.span("raster.forward"):
+            if _use_kernels(config, xy):
+                out = raster_forward_cuda(*args, **where,
+                                          alpha_matmul=config.alpha_matmul)
+            else:
+                out = composite_plain(*args, chunk=config.chunk, **where,
                                       alpha_matmul=config.alpha_matmul)
-        else:
-            out = composite_plain(*args, chunk=config.chunk, **where,
-                                  alpha_matmul=config.alpha_matmul)
         ctx.grid, ctx.config, ctx.where = grid, config, where
         ctx.save_for_backward(xy, conic, opacity, rgb, depth, feat,
                               gid_sorted, tile_starts, tile_counts,
@@ -250,27 +255,30 @@ class _Composite(torch.autograd.Function):
         args = (xy, conic, opacity, rgb, depth, feat, gid_sorted,
                 tile_starts, tile_counts, ctx.grid, g_color, g_feat, g_depth,
                 g_final_t, final_t, n_contrib)
-        if _use_kernels(config, xy):
-            # the forward's wrapper checked these lists; binning lays them
-            # out as the kernel's one-row-per-entry output needs
-            rows = raster_backward_cuda(
-                *args, **ctx.where,
-                feature_alpha_grad=config.feature_alpha_grad,
-                alpha_matmul=config.alpha_matmul, check_lists=False)
-        else:
-            rows = composite_plain_backward(
-                *args, chunk=config.chunk, **ctx.where,
-                feature_alpha_grad=config.feature_alpha_grad,
-                alpha_matmul=config.alpha_matmul)
+        with tracing.span("raster.backward"):
+            if _use_kernels(config, xy):
+                # the forward's wrapper checked these lists; binning lays
+                # them out as the kernel's one-row-per-entry output needs
+                rows = raster_backward_cuda(
+                    *args, **ctx.where,
+                    feature_alpha_grad=config.feature_alpha_grad,
+                    alpha_matmul=config.alpha_matmul, check_lists=False)
+            else:
+                rows = composite_plain_backward(
+                    *args, chunk=config.chunk, **ctx.where,
+                    feature_alpha_grad=config.feature_alpha_grad,
+                    alpha_matmul=config.alpha_matmul)
         # feature rows fold by Gaussian id into [N,F]; geometric rows by
         # (camera, id) = b * N + id into the [B*N] per-camera inputs
-        plan = geom_plan = SegmentPlan(gid_sorted, feat.shape[0])
-        if ctx.where["n_per_camera"]:
-            geom_plan = SegmentPlan(camera_rows(
-                gid_sorted, tile_counts, ctx.where["n_per_camera"],
-                ctx.grid.num_tiles, ctx.where["tile_base"]), xy.shape[0])
-        dg = geom_plan.sum(rows.geom)
-        d_feat = plan.sum(rows.feature) if ctx.needs_input_grad[5] else None
+        with tracing.span("raster.segment_sum"):
+            plan = geom_plan = SegmentPlan(gid_sorted, feat.shape[0])
+            if ctx.where["n_per_camera"]:
+                geom_plan = SegmentPlan(camera_rows(
+                    gid_sorted, tile_counts, ctx.where["n_per_camera"],
+                    ctx.grid.num_tiles, ctx.where["tile_base"]), xy.shape[0])
+            dg = geom_plan.sum(rows.geom)
+            d_feat = (plan.sum(rows.feature) if ctx.needs_input_grad[5]
+                      else None)
         return (dg[:, 0:2], dg[:, 2:5], dg[:, 5], dg[:, 6:9], dg[:, 9],
                 d_feat, None, None, None, None, None, None, None)
 
@@ -386,6 +394,7 @@ def composite_inputs_batch(means3d, opacities, semantic_features, cams, *,
     bins = binning_lib.bin_gaussians_batch(
         rect_min, rect_max, pre.depth.detach(), valid, grid,
         instance_capacity=config.instance_capacity_or_default)
+    tracing.count_tensor("raster.instances", bins.total)
     flat = lambda x: x.reshape((n_cams * n,) + x.shape[2:]).contiguous()
     args = (flat(xy), flat(pre.conic), flat(pre.opacity), flat(pre.rgb),
             flat(pre.depth), semantic_features.contiguous(), bins.gid_sorted,
@@ -441,13 +450,14 @@ def rasterize_batch(
             colors_precomp=colors_precomp, scale_modifier=scale_modifier,
             active_mask=active_mask, config=config)
         n_cams, n, grid = ci.valid.shape[0], means3d.shape[0], ci.grid
-        if _use_kernels(config, means3d):
-            out = raster_forward_cuda(*ci.args, n_per_camera=n,
+        with tracing.span("raster.forward"):
+            if _use_kernels(config, means3d):
+                out = raster_forward_cuda(*ci.args, n_per_camera=n,
+                                          alpha_matmul=config.alpha_matmul)
+            else:
+                out = composite_plain(*ci.args, chunk=config.chunk,
+                                      n_per_camera=n,
                                       alpha_matmul=config.alpha_matmul)
-        else:
-            out = composite_plain(*ci.args, chunk=config.chunk,
-                                  n_per_camera=n,
-                                  alpha_matmul=config.alpha_matmul)
         if bg is None:
             bg = torch.zeros((3,), dtype=out.color.dtype,
                              device=out.color.device)

@@ -23,6 +23,7 @@ import contextlib
 
 import numpy as np
 
+from feature3dgs_tpu_torch import tracing
 from feature3dgs_tpu_torch.model import gaussians as G
 from feature3dgs_tpu_torch.parallel.sharded import (Mesh, gather_state,
                                                     shard_state,
@@ -126,6 +127,7 @@ class DistributedTrainer(Trainer):
                 [self._device_cache(c, "image") for c in cams],
                 [self._device_cache(c, "feature") for c in cams])
 
+    @tracing.spanned("train.step")
     def step(self, cameras=None, sync: bool = True) -> dict:
         """One mesh step over a batch of cameras (``batch`` reference
         iterations); ``sync=False`` reads nothing from the device."""
@@ -135,7 +137,8 @@ class DistributedTrainer(Trainer):
         for it in range(it0, self.iteration + 1):
             if it % 1000 == 0:
                 G.one_up_sh_degree(self.ts.gstate, self.max_sh_degree)
-        views, gt_images, gt_features = self._assemble_batch(cameras)
+        with tracing.span("train.inputs"):
+            views, gt_images, gt_features = self._assemble_batch(cameras)
         # the span's per-iteration schedule is folded into the one update
         # (group_lrs; train.py:77-81)
         span = np.arange(it0, it0 + self.batch)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from feature3dgs_tpu_torch import tracing
 from feature3dgs_tpu_torch.core import sh as sh_lib
 from feature3dgs_tpu_torch.core.projection import CameraView, build_cov3d
 from feature3dgs_tpu_torch.model import gaussians as G
@@ -18,6 +19,7 @@ from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig, RasterOutput,
                                                  rasterize, rasterize_batch)
 
 
+@tracing.spanned("render")
 def render(
     params: G.GaussianParams,
     state: G.GaussianState,
@@ -65,6 +67,7 @@ def render(
         active_mask=state.alive, config=config)
 
 
+@tracing.spanned("render")
 def render_batch(
     params: G.GaussianParams,
     state: G.GaussianState,

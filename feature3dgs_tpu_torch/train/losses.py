@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from feature3dgs_tpu_torch import tracing
 from feature3dgs_tpu_torch.ops.rasterize import tiles_to_image
 
 
@@ -49,6 +50,7 @@ def _blur(x: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
     as depthwise convolutions."""
     c = x.shape[0]
     half = window_size // 2
+    tracing.count("host_wait.ssim_taps")
     taps = torch.from_numpy(_gaussian_taps(window_size, sigma)).to(x.device)
     ky = taps.view(1, 1, window_size, 1).expand(c, 1, window_size, 1)
     kx = taps.view(1, 1, 1, window_size).expand(c, 1, 1, window_size)
@@ -76,6 +78,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     return torch.mean(m)
 
 
+@tracing.spanned("loss.rgb")
 def rgb_loss(image: torch.Tensor, gt: torch.Tensor, lambda_dssim: float = 0.2):
     """(1-λ)·L1 + λ·(1-SSIM) (train.py:105). Returns (loss, l1)."""
     ll1 = l1_loss(image, gt)
@@ -132,6 +135,7 @@ def _taps_in(n_in: int, n_out: int, o0: int, o1: int, first: int, end: int,
     with weight 0 (and a clamped index). Cached: a step uploads nothing."""
     lo, hi, w_lo, w_hi = (x[o0:o1] for x in _interp_taps(n_in, n_out))
     n = max(end - first, 1)
+    tracing.count("host_wait.resize_taps", 4)
     out = []
     for idx, w in ((lo, w_lo), (hi, w_hi)):
         inside = (idx >= first) & (idx < end)

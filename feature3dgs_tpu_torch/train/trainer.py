@@ -29,7 +29,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from feature3dgs_tpu_torch import default_device
+from feature3dgs_tpu_torch import default_device, tracing
 from feature3dgs_tpu_torch.core.projection import CameraView
 from feature3dgs_tpu_torch.model import density, optim
 from feature3dgs_tpu_torch.model import gaussians as G
@@ -103,9 +103,10 @@ def train_step(ts: TrainState, cam: CameraView, gt_image: torch.Tensor,
     out = renderer.render(leaves, gstate, cam, bg=bg, config=rcfg,
                           ndc_offset=ndc_offset)
     rgb, ll1 = L.rgb_loss(out.color, gt_image, ocfg.lambda_dssim)
-    fmap = L.resize_bilinear_from_tiles(
-        out.feature_tiles, rcfg.grid(cam.width, cam.height),
-        gt_feature.shape[0], gt_feature.shape[1])
+    with tracing.span("loss.resize"):
+        fmap = L.resize_bilinear_from_tiles(
+            out.feature_tiles, rcfg.grid(cam.width, cam.height),
+            gt_feature.shape[0], gt_feature.shape[1])
     if speedup:
         fmap = apply_decoder(dec, fmap)
     ll1_feat = L.l1_loss(fmap, gt_feature.to(torch.float32))
@@ -114,7 +115,8 @@ def train_step(ts: TrainState, cam: CameraView, gt_image: torch.Tensor,
     inputs = [getattr(leaves, k) for k in G.GaussianParams.FIELDS] + [ndc_offset]
     if speedup:
         inputs += [dec["w"], dec["b"]]
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    with tracing.span("train.backward"):
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(inputs, grads)]
     n_fields = len(G.GaussianParams.FIELDS)
@@ -123,13 +125,15 @@ def train_step(ts: TrainState, cam: CameraView, gt_image: torch.Tensor,
 
     with torch.no_grad():
         finite = torch.isfinite(loss)
-        optim.adam_update(params, g_params, ts.adam,
-                          optim.group_lrs(ocfg.lr, iteration,
-                                          gstate.spatial_lr_scale),
-                          keep=finite)
-        if speedup:
-            optim.tensor_adam_update(ts.decoder, dict(w=grads[-2], b=grads[-1]),
-                                     ts.decoder_adam, lr=1e-4, keep=finite)
+        with tracing.span("optim.adam"):
+            optim.adam_update(params, g_params, ts.adam,
+                              optim.group_lrs(ocfg.lr, iteration,
+                                              gstate.spatial_lr_scale),
+                              keep=finite)
+            if speedup:
+                optim.tensor_adam_update(
+                    ts.decoder, dict(w=grads[-2], b=grads[-1]),
+                    ts.decoder_adam, lr=1e-4, keep=finite)
         density.add_densification_stats(gstate, g_offset, out.visibility,
                                         out.radii, keep=finite)
         metrics = {
@@ -165,6 +169,7 @@ def reset_opacity_step(ts: TrainState) -> TrainState:
 
 def _host_values(tensors: list) -> list:
     """The values of 0-d tensors as Python floats, in one host read."""
+    tracing.count("host_wait.host_values")
     return torch.stack([x.detach().to(torch.float64) for x in tensors]).tolist()
 
 
@@ -268,6 +273,7 @@ class Trainer:
         return self._viewpoint_stack.pop(
             self.rng.randint(0, len(self._viewpoint_stack) - 1))
 
+    @tracing.spanned("train.step")
     def step(self, camera=None, sync: bool = True) -> dict:
         """One training iteration. With ``sync=False`` the metrics come
         back as device tensors and the host reads nothing."""
@@ -288,17 +294,20 @@ class Trainer:
             self._next_cam = None
         else:
             cam = self.pick_camera()
-        gt_image = self._device_cache(cam, "image")
-        gt_feature = self._device_cache(cam, "feature")
-        metrics = train_step(self.ts, cam.to_view(self.device), gt_image,
-                             gt_feature, self.bg, it, ocfg=self.ocfg,
-                             rcfg=self.rcfg, speedup=self.speedup)
+        with tracing.span("train.inputs"):
+            gt_image = self._device_cache(cam, "image")
+            gt_feature = self._device_cache(cam, "feature")
+            view = cam.to_view(self.device)
+        metrics = train_step(self.ts, view, gt_image, gt_feature, self.bg, it,
+                             ocfg=self.ocfg, rcfg=self.rcfg,
+                             speedup=self.speedup)
         if camera is None:
             # draw the next camera now (same rng sequence, one step early)
             # so that its upload overlaps this step's device work
             self._next_cam = self.pick_camera()
-            self._device_cache(self._next_cam, "image")
-            self._device_cache(self._next_cam, "feature")
+            with tracing.span("train.inputs"):
+                self._device_cache(self._next_cam, "image")
+                self._device_cache(self._next_cam, "feature")
 
         # A non-finite step is discarded on the device inside train_step;
         # the host only escalates at sync points, where repeated
@@ -312,6 +321,7 @@ class Trainer:
         self._pending_maintenance = (it, metrics)
         return metrics
 
+    @tracing.spanned("train.sync")
     def _sync_metrics(self, metrics: dict, it: int, tag: str):
         """The blocking metrics read of a sync point (one host read for the
         whole dict), and what rides on it: folding the queued densify
@@ -334,6 +344,7 @@ class Trainer:
         self._maybe_grow_raster(host_metrics)
         return host_metrics, True
 
+    @tracing.spanned("train.maintenance")
     def flush_maintenance(self, drain: bool = False) -> None:
         """Apply the deferred densify / prune / opacity reset of the last
         completed iteration (nothing when none is pending). Call it before

@@ -114,8 +114,9 @@ def test_train_cli_writes_the_artifact_tree(scene_dir, tmp_path, capsys):
 
 def test_train_cli_speedup_alpha_matmul_and_profile(scene_dir, tmp_path):
     """--speedup saves the decoder beside the PLY, --alpha_matmul reaches
-    the trainer's RasterConfig, --profile writes its table and trace, and
-    the render CLI finds the decoder in a full checkpoint too."""
+    the trainer's RasterConfig, --profile writes its table, trace and the
+    program's span summary, and the render CLI finds the decoder in a full
+    checkpoint too."""
     out = str(tmp_path / "out")
     rc = train_cli.main([
         "-s", scene_dir, "-m", out, "-f", "lseg", "--speedup",
@@ -130,6 +131,11 @@ def test_train_cli_speedup_alpha_matmul_and_profile(scene_dir, tmp_path):
     assert dec["w"].shape == (2, 8)
     assert os.path.getsize(tmp_path / "prof" / "train_profile.txt") > 0
     assert os.path.exists(tmp_path / "prof" / "train_trace.json")
+    with open(tmp_path / "prof" / "train_spans.json") as f:
+        spans = json.load(f)
+    assert spans["spans"]["train.step"]["count"] >= 10
+    assert spans["spans"]["decoder"]["device_ms"] is None    # on the CPU
+    assert spans["counters"]["host_wait.host_values"] >= 10
     os.remove(os.path.join(out, "decoder_chkpnt31.ckpt"))
     assert render_cli.main(["-m", out, "--iteration", "31", "--device",
                             "cpu"]) == 0

@@ -119,6 +119,16 @@ Phases, one line each; any failure raises and exits non-zero:
                = 512 on the training scene, whose launches count in the
                kernels line); each returns 0, names the card first and
                prints every row with a finite ms and bytes bound on gpu.
+  adam         the fused Adam kernel (ops/csrc/adam.cu) at the training
+               cells' sizes, 1 M Gaussians at F = 128 and 512 (187 M and
+               571 M elements; the SH gradients as slices of one [N, 16, 3]
+               gradient, as autograd hands them), keep a device True: one
+               step bit-equal to the plain version (model/optim.py:_adam_)
+               on clones; the group's call (the kernel and the counter's
+               add, 20 calls), the plain version's and torch._fused_adam_'s
+               (the library yardstick, one learning rate, contiguous
+               gradients) times beside the 28-byte-an-element bound; the
+               kernel's registers, local bytes and blocks an SM.
   parity       the parity CLI's scene (1,000 Gaussians, 208x160, SH degree
                3) at F = 8 and at F = 128: the CUDA route (one forward and
                one backward launch) in the exact and alpha_matmul modes
@@ -225,7 +235,8 @@ PEAK_BYTES (3.35e12 B/s) and PEAK_F32_FLOPS (67e12 f32 operations/s).
 Then the card's name and power limit, a {"kernels": [...]} line (the two
 forward entries also with batch8_ms and batch8_bound_ms, the two backward
 entries with batch4_ms and batch4_bound_ms, all four with f256_ms,
-f256_bound_ms, f512_ms and f512_bound_ms from kernel_wide) and, last,
+f256_bound_ms, f512_ms and f512_bound_ms from kernel_wide; a fifth entry,
+adam, with adam's times and bounds at F = 128 and 512) and, last,
 {"ok": true, "device": {...}}. With --profile DIR, torch.profiler tables of
 two served views, of the 8 views sequential and in a batch of 8 (with the
 device-busy ms and idle share of each) and of two training steps are
@@ -1978,6 +1989,89 @@ def phase_micro():
     return launches
 
 
+def phase_adam(dev):
+    """The fused Adam at 1 M Gaussians, F = 128 and 512: one step
+    bit-equal to the plain version, then times. Returns the kernel's row
+    for the kernels line, less its launches: those are counted on the
+    training loop's main path."""
+    import torch
+
+    from feature3dgs_tpu_torch.model import optim
+    from feature3dgs_tpu_torch.model.gaussians import GaussianParams
+    from feature3dgs_tpu_torch.ops import cuda_adam
+    n = 1_000_000
+    lrs = optim.group_lrs(optim.LRConfig(), 15_000, 1.0)
+    row = {"library_ms": {}}
+    for f_dim in (128, 512):
+        gen = torch.Generator(device=dev).manual_seed(f_dim)
+        shapes = {"xyz": (n, 3), "features_dc": (n, 1, 3),
+                  "features_rest": (n, 15, 3), "scaling": (n, 3),
+                  "rotation": (n, 4), "opacity": (n, 1),
+                  "semantic_feature": (n, 1, f_dim)}
+
+        def draw(scale, square=False):
+            out = {k: torch.randn(s, generator=gen, device=dev) * scale
+                   for k, s in shapes.items()}
+            return {k: v * v for k, v in out.items()} if square else out
+
+        grads = draw(1e-3)
+        sh = torch.randn((n, 16, 3), generator=gen, device=dev) * 1e-3
+        grads["features_dc"], grads["features_rest"] = sh[:, :1], sh[:, 1:]
+        fused = [draw(1.0), draw(1e-3), draw(1e-3, square=True),
+                 torch.tensor(14_999, dtype=torch.int32, device=dev)]
+        plain = [{k: v.clone() for k, v in d.items()} for d in fused[:3]] \
+            + [fused[3].clone()]
+        keep = torch.tensor(True, device=dev)
+        with torch.no_grad():
+            optim._adam_by_device(fused[0], grads, fused[1], fused[2],
+                                  fused[3], lrs, 0.9, 0.999, 1e-15, keep)
+            optim._adam_(plain[0], grads, plain[1], plain[2], plain[3], lrs,
+                         0.9, 0.999, 1e-15, keep)
+        torch.cuda.synchronize()
+        for part in range(3):
+            for k in shapes:
+                if not torch.equal(fused[part][k].view(torch.int32),
+                                   plain[part][k].view(torch.int32)):
+                    raise AssertionError(f"adam F={f_dim}: {k} of part "
+                                         f"{part} differs from the plain one")
+        if not torch.equal(fused[3], plain[3]):
+            raise AssertionError(f"adam F={f_dim}: step counters differ")
+        elements = sum(math.prod(s) for s in shapes.values())
+        group = GaussianParams(**fused[0])
+        g_params = GaussianParams(**grads)
+        state = optim.AdamState(GaussianParams(**fused[1]),
+                                GaussianParams(**fused[2]), fused[3])
+        ms = cuda_ms(lambda: optim.adam_update(group, g_params, state, lrs,
+                                               keep=keep), 20)
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: optim._adam_(
+                plain[0], grads, plain[1], plain[2], plain[3], lrs, 0.9,
+                0.999, 1e-15, keep), 3)
+        del plain
+        library_ms = None
+        if hasattr(torch, "_fused_adam_"):
+            names = list(shapes)
+            flat = [grads[k].contiguous() for k in names]
+            steps = [torch.tensor(15_000.0, device=dev) for _ in names]
+            library_ms = cuda_ms(lambda: torch._fused_adam_(
+                [fused[0][k] for k in names], flat,
+                [fused[1][k] for k in names], [fused[2][k] for k in names],
+                [], steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.0,
+                eps=1e-15, amsgrad=False, maximize=False), 20)
+        bound = bytes_bound_ms(28 * elements)
+        row.update({f"f{f_dim}_ms": ms, f"f{f_dim}_bound_ms": bound,
+                    f"f{f_dim}_plain_ms": plain_ms})
+        row["library_ms"][f"f{f_dim}"] = library_ms
+        say("adam", F=f_dim, elements=elements, bit_equal=True,
+            group_ms=f"{ms:.4f}", bound_ms=f"{bound:.4f}",
+            roofline=f"{bound / ms:.3f}", plain_ms=f"{plain_ms:.3f}",
+            library_ms=None if library_ms is None else f"{library_ms:.4f}",
+            **cuda_adam.kernel_attributes())
+        del fused, grads, sh, group, g_params, state
+        torch.cuda.empty_cache()
+    return row
+
+
 # the compressed schedule of the train_loop phase
 LOOP_STEPS, LOOP_DENSIFY_FROM, LOOP_DENSIFY_EVERY, LOOP_RESET_EVERY = 50, 5, 10, 20
 LOOP_SYNC_EVERY = 12
@@ -2033,7 +2127,7 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
 
     import torch
     from feature3dgs_tpu_torch.model import gaussians as G
-    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops import cuda_adam, cuda_raster
     names = (("FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES") if mm
              else ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES"))
     records = []
@@ -2041,6 +2135,7 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
         it = trainer.iteration + 1
         sync = it == 1 or it % LOOP_SYNC_EVERY == 0
         before = [getattr(cuda_raster, n) for n in names]
+        adam_before = cuda_adam.ADAM_LAUNCHES
         counting = it in count_syncs
 
         def watched(fn, *a, **kw):
@@ -2068,6 +2163,7 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
                "finite": m["finite"],
                "launches": tuple(getattr(cuda_raster, n) - b
                                  for n, b in zip(names, before)),
+               "adam_launches": cuda_adam.ADAM_LAUNCHES - adam_before,
                "syncs": None}
         if counting:
             sites = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
@@ -2095,7 +2191,7 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
 def phase_train_loop(dev, scene, scene_s):
     import torch
     from feature3dgs_tpu_torch.model.ply_io import load_gaussians_ply
-    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops import cuda_adam, cuda_raster
     from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
     from feature3dgs_tpu_torch.render import renderer
     from feature3dgs_tpu_torch.train import checkpoints as ckpt
@@ -2116,6 +2212,7 @@ def phase_train_loop(dev, scene, scene_s):
     for name in ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES",
                  "FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES"):
         setattr(cuda_raster, name, 0)
+    cuda_adam.ADAM_LAUNCHES = 0
     t0 = time.perf_counter()
     trainer = make(RasterConfig())
     init_s = time.perf_counter() - t0
@@ -2196,9 +2293,13 @@ def phase_train_loop(dev, scene, scene_s):
                                         device=dev) for r in records]).tolist()
     if not all(math.isfinite(v) for v in vals):
         raise AssertionError(f"train_loop: non-finite loss in {vals}")
-    bad = [(r["it"], r["launches"]) for r in records if r["launches"] != (1, 1)]
+    # one fused Adam launch a step for the Gaussians, one more for a decoder
+    adam_per_step = 2 if trainer.speedup else 1
+    bad = [(r["it"], r["launches"], r["adam_launches"]) for r in records
+           if r["launches"] != (1, 1) or r["adam_launches"] != adam_per_step]
     if bad:
-        raise AssertionError(f"train_loop: launches per step {bad}")
+        raise AssertionError(f"train_loop: raster and Adam launches per step "
+                             f"{bad}")
     log = trainer.densify_log
     totals = {k: sum(r[k] for r in log)
               for k in ("num_cloned", "num_split", "num_pruned")}
@@ -2251,6 +2352,7 @@ def phase_train_loop(dev, scene, scene_s):
         del params, state, out
     os.remove(ply)
     launches = (cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)
+    adam_launches = cuda_adam.ADAM_LAUNCHES
 
     main_run = [r for r in records if 3 <= r["it"] <= LOOP_STEPS
                 and not r["sync"]]
@@ -2284,6 +2386,7 @@ def phase_train_loop(dev, scene, scene_s):
         resume_loss_rel_err=resume_loss, resume_mu_max_norm_err=resume_mu,
         checkpoint_bytes=ckpt_bytes, served_active=served_active,
         forward_launches=launches[0], backward_launches=launches[1],
+        adam_launches=adam_launches, adam_launches_per_step=adam_per_step,
         loss_first=f"{vals[0]:.6f}", loss_last=f"{vals[-1]:.6f}")
     say("train_loop_sync_sites", per_step=json.dumps(sites).replace(" ", ""))
     say("train_loop_rounds", log=json.dumps(log).replace(" ", ""))
@@ -2295,7 +2398,8 @@ def phase_train_loop(dev, scene, scene_s):
     alpha = make(RasterConfig(alpha_matmul=True))
     a_records = run_loop(alpha, 10, dev, mm=True)
     a_vals = [float(r["loss"]) for r in a_records]
-    a_bad = [r["launches"] for r in a_records if r["launches"] != (1, 1)]
+    a_bad = [(r["launches"], r["adam_launches"]) for r in a_records
+             if r["launches"] != (1, 1) or r["adam_launches"] != adam_per_step]
     if (not all(math.isfinite(v) for v in a_vals) or a_bad or launches != (
             cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)):
         raise AssertionError(f"train_loop alpha_matmul: losses {a_vals}, "
@@ -2307,9 +2411,10 @@ def phase_train_loop(dev, scene, scene_s):
         exact_mode_same_steps_ms_median_min_max=stat(exact_early),
         forward_mm_launches=mm_launches[0],
         backward_mm_launches=mm_launches[1],
+        adam_launches=cuda_adam.ADAM_LAUNCHES - adam_launches,
         loss_first=f"{a_vals[0]:.6f}", loss_last=f"{a_vals[-1]:.6f}",
         exact_loss_first=f"{vals[0]:.6f}")
-    return launches, mm_launches
+    return launches, mm_launches, cuda_adam.ADAM_LAUNCHES
 
 
 def free_port() -> int:
@@ -3136,6 +3241,8 @@ def main(argv=None) -> int:
     del params, state, gt_image, gt_feature
     if want("kernel_wide"):
         wide = phase_kernel_wide(dev)
+    if want("adam"):
+        adam_row = phase_adam(dev)
     if want("setup"):
         phase_setup()
     if want("train"):
@@ -3157,7 +3264,7 @@ def main(argv=None) -> int:
     if want("kernel_loop"):
         at_loop = phase_kernel_loop(dev, scene)
     if want("train_loop"):
-        loop, loop_mm = phase_train_loop(dev, scene, scene_s)
+        loop, loop_mm, loop_adam = phase_train_loop(dev, scene, scene_s)
     parity_cli = phase_parity(dev) if want("parity") else None
     try:
         if want("train_cli") or want("serve_cli"):
@@ -3204,7 +3311,9 @@ def main(argv=None) -> int:
              source=src + "raster_backward.cu", replaces=tpu + "671",
              launches=loop_mm[1], **bwd_mm, library_ms=None,
              **at_loop[("bwd", True)], **at_batch4[True],
-             **wide[("bwd", True)])]}))
+             **wide[("bwd", True)]),
+        dict(name="adam", route="cuda", source=src + "adam.cu",
+             replaces=None, launches=loop_adam, **adam_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

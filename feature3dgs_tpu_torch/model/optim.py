@@ -10,9 +10,16 @@ is torch.optim.Adam's: p -= lr * mhat / (sqrt(nhat) + eps).
 Unlike the JAX package, whose pytrees are immutable, the updates here write
 parameters, moments and the step counter in place (no second copy of the
 optimizer state), under ``torch.no_grad``. The ``keep`` gate of
-``adam_update`` (the trainer's non-finite-loss guard) is a device-side
-select, so it costs no host sync. These are plain elementwise ops, not
-kernels.
+``adam_update`` (the trainer's non-finite-loss guard) is read on the
+device, so it costs no host sync.
+
+The update goes by the tensors' device. CUDA tensors take one launch of
+the fused kernel a group (ops/cuda_adam.py, ops/csrc/adam.cu: every tensor
+read and written once, nothing allocated) and the counter is advanced
+after it; CPU tensors take ``_adam_``, plain elementwise ops, which is also
+the kernel's bit-for-bit oracle on the card. Counters
+``optim.adam_fused`` and ``optim.adam_plain`` count the tensors each path
+updated.
 """
 from __future__ import annotations
 
@@ -21,8 +28,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from feature3dgs_tpu_torch import default_device
+from feature3dgs_tpu_torch import default_device, tracing
 from feature3dgs_tpu_torch.model.gaussians import GaussianParams
+from feature3dgs_tpu_torch.ops import cuda_adam
 
 
 @dataclasses.dataclass
@@ -158,6 +166,22 @@ def _adam_(params: dict, grads: dict, mu: dict, nu: dict, step: torch.Tensor,
                else torch.where(keep, new_step, step))
 
 
+def _adam_by_device(params: dict, grads: dict, mu: dict, nu: dict,
+                    step: torch.Tensor, lrs, b1: float, b2: float, eps: float,
+                    keep):
+    """``_adam_``'s step by the parameters' device: CUDA tensors in one
+    kernel launch, whose blocks read the counter, which is advanced after
+    it on the same stream; CPU tensors by ``_adam_``."""
+    if next(iter(params.values())).device.type == "cuda":
+        cuda_adam.adam_cuda_(params, grads, mu, nu, step, lrs, keep, b1=b1,
+                             b2=b2, eps=eps)
+        step.add_(1 if keep is None else keep)
+        tracing.count("optim.adam_fused", len(params))
+    else:
+        _adam_(params, grads, mu, nu, step, lrs, b1, b2, eps, keep)
+        tracing.count("optim.adam_plain", len(params))
+
+
 @torch.no_grad()
 def adam_update(params: GaussianParams, grads: GaussianParams,
                 state: AdamState, lrs: dict, *, b1: float = 0.9,
@@ -166,8 +190,8 @@ def adam_update(params: GaussianParams, grads: GaussianParams,
     """One Adam step of every field, in place; returns (params, state).
     ``keep`` (scalar bool tensor): where False, parameters, moments and the
     step counter stay as they were, with no host sync."""
-    _adam_(_fields(params), _fields(grads), _fields(state.mu),
-           _fields(state.nu), state.step, lrs, b1, b2, eps, keep)
+    _adam_by_device(_fields(params), _fields(grads), _fields(state.mu),
+                    _fields(state.nu), state.step, lrs, b1, b2, eps, keep)
     return params, state
 
 
@@ -177,6 +201,6 @@ def tensor_adam_update(params: dict, grads: dict, state: TensorAdamState,
                        eps: float = 1e-8, keep: torch.Tensor | None = None):
     """Plain Adam over a dict of tensors (the decoder), in place; ``keep``
     as in ``adam_update``. Returns (params, state)."""
-    _adam_(params, grads, state.mu, state.nu, state.step,
-           dict.fromkeys(params, lr), b1, b2, eps, keep)
+    _adam_by_device(params, grads, state.mu, state.nu, state.step,
+                    dict.fromkeys(params, lr), b1, b2, eps, keep)
     return params, state

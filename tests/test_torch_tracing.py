@@ -171,6 +171,23 @@ def test_step_bit_equal_with_tracing_on_and_off():
         assert torch.equal(s_off[k], s_on[k]), k
 
 
+def test_adam_counts_the_tensors_of_the_plain_path():
+    """CPU tensors take the plain Adam: 7 fields and the decoder's 2
+    tensors a step, none counted as fused."""
+    from feature3dgs_tpu_torch.model import optim
+    tr = _trainer()
+    with tracing.recording() as session:
+        tr.step(sync=False)
+        tr.step(sync=True)
+        optim.tensor_adam_update(
+            tr.ts.decoder, {k: torch.zeros_like(v)
+                            for k, v in tr.ts.decoder.items()},
+            tr.ts.decoder_adam, lr=1e-4)
+    counters = session.summary()["counters"]
+    assert counters["optim.adam_plain"] == 2 * 9 + 2
+    assert "optim.adam_fused" not in counters
+
+
 def test_self_time_subtracts_the_union_of_children():
     assert tracing.self_time((0.0, 10.0), []) == 10.0
     assert tracing.self_time((0.0, 10.0), [(2.0, 4.0), (3.0, 5.0),

@@ -5,13 +5,15 @@
 
 Runs from the root of a checkout holding ``BENCHMARK.json``, this folder and
 the program (``feature3dgs_tpu_torch``). The cell's configuration, traffic
-mix, limits and metric readers are found by name (``harness/spec.py``). The
-run makes its inputs from the seed on the card, sets the program up and
-warms it up (``setup_s``), drives the traffic for ``--seconds``, reads the
-peak memory, frees the program's state, and compares what the timed path
-produced with the plain reference (``harness/check.py``). With ``--trace 1``
-it then profiles a short window and reports the per-layer metrics, the
-device's busy time and a breakdown; otherwise the end-to-end metrics.
+mix, entry, limits and metric readers are found by name
+(``harness/spec.py``). The entry (``entries/<entry>.py``) makes its inputs
+from the seed on the card, sets the program up and warms it up
+(``setup_s``), drives the traffic for ``--seconds``, reads the peak memory
+and frees the program's state; the run then compares what the timed path
+produced with the entry's plain reference (``harness/check.py``). With
+``--trace 1`` the entry also profiles a short window, and the run reports
+the per-layer metrics, the device's busy time and a breakdown; otherwise
+the end-to-end metrics.
 
 The last lines on standard error are the numbers compared, each with its
 limit; the last line on standard output is the result:
@@ -42,7 +44,7 @@ os.environ.setdefault("USE_FLAX", "0")
 
 import torch  # noqa: E402
 
-from port_bench.harness import check, entries, spec, trace, work  # noqa: E402
+from port_bench.harness import check, spec, trace  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "feature3dgs_tpu")
 
@@ -59,11 +61,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace_on: bool,
              ) -> dict:
     """One run of ``cell``: the result's keys, "checks" last. With
     ``control`` the result also holds "control": the numbers of the
-    reference computed in TF32 put in the program's place (calibration
-    only; the benchmark's runs never compute it)."""
-    cfg, traffic = cell.config, cell.traffic
-    out = entries.ENTRIES[traffic["entry"]](cfg, traffic, seed, seconds,
-                                           device, trace_on)
+    reference computed in the precision below put in the program's place
+    (calibration only; the benchmark's runs never compute it)."""
+    cfg, traffic, entry = cell.config, cell.traffic, cell.entry
+    out = entry.run(cfg, traffic, seed, seconds, device, trace_on)
     kind = out["unit_kind"]
     ctx = {"kind": kind, "units": out["units"], "window_s": out["window_s"],
            "latencies_s": out.get("latencies_s"),
@@ -79,8 +80,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace_on: bool,
         events, window = traced.pop("events"), traced.pop("window")
         iv = (trace.device_intervals(events, window)
               if device.type == "cuda" else [])
-        counted = work.count(cfg, traced.pop("geometry"), traced["cameras"],
-                             kind, device)
+        counted = entry.count(cfg, traced, device)
         ctx["traced"] = dict(traced, **counted, intervals=iv,
                              busy_s=trace.busy_us(iv) / 1e6,
                              window_s=(window[1] - window[0]) / 1e6)
@@ -90,11 +90,11 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace_on: bool,
         del events
 
     t_check = time.perf_counter()
-    numbers = check.run(kind, cfg, traffic, seed, out, device)
+    numbers = check.run(entry, cfg, traffic, seed, out, device)
     print(f"reference: {time.perf_counter() - t_check:.1f} s",
           file=sys.stderr)
     correct, checks = check.judge(numbers, cell.limits)
-    controlled = (check.control(kind, cfg, traffic, seed, out, device)
+    controlled = (check.control(entry, cfg, traffic, seed, out, device)
                   if control else None)
     metrics = spec.read_metrics(cell.per_layer if trace_on else cell.metrics,
                                 ctx)

@@ -80,7 +80,9 @@ def test_every_cell_reports_its_metrics():
 def test_cell_parts_found_by_name(w):
     cell = spec.cell(w["name"], BENCH)
     assert cell.config["name"] == w["config"]
-    assert cell.traffic["entry"] in ("train", "serve")
+    assert (spec.HERE / "entries" / f"{cell.traffic['entry']}.py").is_file()
+    for part in ("run", "reference", "numbers", "count"):
+        assert callable(getattr(cell.entry, part))
     assert cell.limits
     for m in cell.metrics + cell.per_layer:
         assert callable(spec.reader(m["name"]))
@@ -152,3 +154,163 @@ def test_a_cell_added_with_files_alone(tmp_path):
     # peak memory reads nothing on the CPU; view_ms and the p95 list other
     # cells
     assert set(r["metrics"]) == {"views_done", "setup_s"}
+
+
+TOY_ENTRY = '''
+"""A seeded matrix product: the program's side in float32, its reference
+in float64 (float32 for the control)."""
+import time
+
+import torch
+
+from port_bench.harness import trace
+
+
+def product(a, b):
+    return a @ b
+
+
+def inputs(cfg, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = cfg["size"]
+    return (torch.randn(n, n, generator=g, device=device),
+            torch.randn(n, n, generator=g, device=device))
+
+
+def run(cfg, traffic, seed, seconds, device, trace_on):
+    a, b = inputs(cfg, seed, device)
+    for _ in range(traffic["warmup"]):
+        product(a, b)
+    setup_end = t0 = time.perf_counter()
+    n = 0
+    while time.perf_counter() - t0 < seconds:
+        c = product(a, b)
+        n += 1
+    out = {"unit_kind": "product", "units": n,
+           "window_s": time.perf_counter() - t0, "setup_end": setup_end,
+           "attempted": n, "failed": 0, "readings": {"c": c},
+           "peak_bytes": 0}
+    if trace_on:
+        traced = {}
+        with trace.profiled(device, traced):
+            for _ in range(traffic["traced"]):
+                product(a, b)
+        traced["units"] = traffic["traced"]
+        out["traced"] = traced
+    return out
+
+
+def reference(cfg, traffic, seed, out, device, tf32=False):
+    a, b = inputs(cfg, seed, device)
+    dtype = torch.float32 if tf32 else torch.float64
+    return {"c": a.to(dtype) @ b.to(dtype)}
+
+
+def numbers(prog, ref):
+    r = ref["c"].double()
+    gap = (prog["c"].double() - r).abs().max() / r.abs().max()
+    return {"product_gap": float(gap)}
+
+
+def count(cfg, traced, device):
+    return {"ops": 2 * cfg["size"] ** 3}
+'''
+
+TOY_READERS = {
+    "product_ms": '''
+def read(ctx):
+    if ctx["kind"] != "product" or not ctx["units"]:
+        return None
+    return 1e3 * ctx["window_s"] / ctx["units"]
+''',
+    "product_mops": '''
+def read(ctx):
+    t = ctx.get("traced")
+    if ctx["kind"] != "product" or t is None:
+        return None
+    return t["ops"] / 1e6
+'''}
+
+
+def _toy_copy(tmp_path, entry="toy_product"):
+    """A copy of the benchmark with a new kind of work (a matrix product)
+    added as new files and new entries only: its entry, configuration,
+    traffic mix, limits, two metric readers and one cell."""
+    shutil.copytree(ROOT / "port_bench", tmp_path / "port_bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    base = tmp_path / "port_bench"
+    (base / "entries" / "toy_product.py").write_text(TOY_ENTRY)
+    (base / "configs" / "toy_64.json").write_text(json.dumps(
+        {"name": "toy_64", "source": "a throwaway test configuration",
+         "size": 64}))
+    (base / "traffic" / "toy_loop.json").write_text(json.dumps(
+        {"entry": entry, "warmup": 2, "traced": 3}))
+    (base / "limits" / "toy_64_loop.json").write_text(json.dumps(
+        {"product_gap": 1e-4}))
+    for name, src in TOY_READERS.items():
+        (base / "metrics" / f"{name}.py").write_text(src)
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "toy_64", "source": "test",
+                             "file": "port_bench/configs/toy_64.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "toy_64_loop", "config": "toy_64",
+                               "traffic": "toy_loop", "chips": 1,
+                               "why": "test"})
+    bench["end_to_end"].append({"name": "product_ms", "unit": "ms",
+                                "better": "lower", "bound": 0.25,
+                                "source": "host_clock",
+                                "workloads": ["toy_64_loop"]})
+    bench["per_layer"].append({"name": "product_mops", "unit": "Mop",
+                               "better": "higher", "source": "device_trace",
+                               "layer": "toy", "moves": "product_ms",
+                               "workloads": ["toy_64_loop"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    return bench, base
+
+
+@pytest.mark.parametrize("case", ["sound", "traced", "perturbed"])
+def test_a_kind_of_work_added_with_files_alone(tmp_path, case):
+    """The toy cell runs through ``run.run_cell`` from the copy: sound it is
+    correct and reports its own metrics; with its answer altered where it is
+    produced, by one part in a thousand, it is not correct."""
+    _toy_copy(tmp_path)
+    script = textwrap.dedent(f'''
+        import json, sys, time
+        import torch
+        torch.set_num_threads(2)
+        import port_bench
+        assert port_bench.__file__.startswith({str(tmp_path)!r})
+        from port_bench import run
+        from port_bench.harness import spec
+        cell = spec.cell("toy_64_loop", spec.benchmark())
+        if {case == "perturbed"}:
+            real = cell.entry.product
+            cell.entry.product = lambda a, b: real(a, b) * (1 + 1e-3)
+        r = run.run_cell(cell, {SEED}, 0.2, {case == "traced"},
+                         torch.device("cpu"), time.perf_counter())
+        print(json.dumps(r))
+        ''')
+    env = {"PYTHONPATH": f"{tmp_path}:{ROOT}", "PATH": "/usr/bin:/bin"}
+    done = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert done.returncode == 0, done.stderr[-3000:]
+    r = json.loads(done.stdout.strip().splitlines()[-1])
+    gap = r["checks"]["product_gap"]
+    assert set(r["checks"]) == {"product_gap"} and gap["limit"] == 1e-4
+    if case == "perturbed":
+        assert not r["correct"] and gap["value"] > 5e-4, r["checks"]
+        return
+    assert r["correct"] and gap["value"] < 1e-5, r["checks"]
+    assert r["attempted"] > 0 and r["failed"] == 0
+    if case == "traced":
+        assert r["metrics"] == {"product_mops": {"value": 2 * 64 ** 3 / 1e6,
+                                                 "unit": "Mop"}}
+    else:
+        assert set(r["metrics"]) == {"product_ms", "setup_s"}
+
+
+def test_a_missing_entry_is_named_before_anything_is_drawn(tmp_path):
+    bench, base = _toy_copy(tmp_path, entry="toy_absent")
+    with pytest.raises(FileNotFoundError, match="entries/toy_absent.py"):
+        spec.cell("toy_64_loop", bench, base)

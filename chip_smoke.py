@@ -2826,8 +2826,9 @@ def phase_encoders(dev, params, state):
     built on the card (no weights exist here): LSeg ViT-L/16 (encode_image
     of a 480x360 image, the net's f32 output against the same weights on
     the CPU), CLIP ViT-B/32 (CLIPConfig()'s defaults, card against CPU),
-    SAM ViT-H (1280 wide, 32 blocks; encode_image timed on the card; a
-    2-block copy at full width held against the CPU), then segment_time's
+    SAM ViT-H (``sam_encoder.build_sam``: 1280 wide, 32 blocks;
+    encode_image timed on the card; a 2-block copy at full width held
+    against the CPU), then segment_time's
     loop on an embedding rendered from the serve scene through a seeded
     128 -> 256 decoder, and auto_masks on it."""
     import copy
@@ -2835,9 +2836,7 @@ def phase_encoders(dev, params, state):
 
     import torch
     import torch.nn.functional as F
-    from transformers import (CLIPConfig, CLIPImageProcessor, CLIPModel,
-                              SamConfig, SamImageProcessor, SamModel,
-                              SamProcessor, SamVisionConfig)
+    from transformers import CLIPConfig, CLIPImageProcessor, CLIPModel
 
     from feature3dgs_tpu_torch.cli.segment_time import time_decoding
     from feature3dgs_tpu_torch.encoders import (clip_pixel, lseg_net,
@@ -2896,19 +2895,12 @@ def phase_encoders(dev, params, state):
     say("encoders_clip", config="CLIPConfig()", encode_ms_median=
         f"{clip_ms:.3f}", card_vs_cpu_max_norm_err=clip_err, bar=bar)
 
-    # SAM ViT-H: a 2-block copy at full width against the CPU first
-    def sam_model(layers, global_at):
-        cfg = SamConfig(vision_config=SamVisionConfig(
-            hidden_size=1280, num_hidden_layers=layers,
-            num_attention_heads=16, global_attn_indexes=global_at).to_dict())
-        with torch.device(dev):
-            model = SamModel(cfg)
-        return seeded_init_(model, gen).eval()
-
-    proc = SamProcessor(SamImageProcessor())
-    small = (sam_model(2, [1]), proc)
+    # SAM ViT-H (encoders/sam_encoder.py:build_sam): a 2-block copy at full
+    # width against the CPU first
+    small = sam_encoder.build_sam(dev, gen, num_hidden_layers=2,
+                                  global_attn_indexes=[1])
     emb_card = sam_encoder.encode_image(image8, small)
-    cpu_small = (copy.deepcopy(small[0]).cpu(), proc)
+    cpu_small = (copy.deepcopy(small[0]).cpu(), small[1])
     emb_err = norm_err(emb_card.cpu(),
                        sam_encoder.encode_image(image8, cpu_small))
     pts = [[200.0, 150.0], [500.0, 300.0]]
@@ -2923,7 +2915,7 @@ def phase_encoders(dev, params, state):
     if not (emb_err <= bar and dec_err <= bar):
         raise AssertionError(f"encoders: SAM 2-block card vs CPU: embedding "
                              f"{emb_err}, decoder {dec_err}")
-    sam = (sam_model(32, [7, 15, 23, 31]), proc)
+    sam = sam_encoder.build_sam(dev, gen)
     n_params = sum(p.numel() for p in sam[0].parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()

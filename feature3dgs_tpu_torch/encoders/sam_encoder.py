@@ -7,10 +7,18 @@ aspect (64 * h/w or 64 * w/h, export_image_embeddings.py:74-83), saved as
 ``<name>_fmap_CxHxW.pt`` (+ .npy twin) into the scene's
 ``sam_embeddings/``.
 
-Needs a local checkpoint (SAM_MODEL_PATH, ``--checkpoint``, or
+The CLI needs a local checkpoint (SAM_MODEL_PATH, ``--checkpoint``, or
 facebook/sam-vit-huge in the Hugging Face cache); ``load_sam`` raises when
-it is absent. Functions that run the model take ``sam``, a (SamModel,
-SamProcessor) pair, so a caller can hand in a model it built.
+it is absent. ``build_sam`` builds ViT-H at its published widths with
+seeded weights instead. Functions that run the model take ``sam``, a
+(SamModel, SamProcessor) pair, so a caller can hand in a model it built.
+
+Spans (``tracing.py``): ``sam.encode`` holds ``sam.preprocess`` (the
+processor on the host and the upload), one ``sam.window_block`` or
+``sam.global_block`` a block, and ``sam.neck``; counters ``sam.images``,
+``host_wait.sam_upload`` and ``host_wait.sam_embedding`` (the export's copy
+to the host). The block and neck spans are hooks on the ``transformers``
+modules, set by ``build_sam`` and ``load_sam``.
 """
 from __future__ import annotations
 
@@ -21,9 +29,61 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from feature3dgs_tpu_torch import default_device
+from feature3dgs_tpu_torch import default_device, tracing
 
 _CACHE: dict = {}
+
+# SAM ViT-H's image encoder (segment-anything build_sam.py:build_sam_vit_h;
+# facebook/sam-vit-huge), as transformers' SamVisionConfig keys: 16 x 16
+# patches of a 1024 x 1024 input (64 x 64 tokens), 32 blocks of width 1280
+# with 16 heads of 80 and an MLP of 5120, 14 x 14 windows but in the 4
+# global blocks, a 256-channel neck
+VIT_H = dict(hidden_size=1280, num_hidden_layers=32, num_attention_heads=16,
+             global_attn_indexes=[7, 15, 23, 31], window_size=14,
+             image_size=1024, patch_size=16, output_channels=256,
+             mlp_dim=5120)
+
+
+def _span_blocks(model):
+    """Hook the spans of each vision block (windowed or global) and of the
+    neck onto ``model``'s ``transformers`` modules."""
+    enc = model.vision_encoder
+    globals_ = set(enc.config.global_attn_indexes)
+    for i, layer in enumerate(enc.layers):
+        tracing.span_calls(layer, "sam.global_block" if i in globals_
+                           else "sam.window_block")
+    tracing.span_calls(enc.neck, "sam.neck")
+    return model
+
+
+def build_sam(device=None, generator: torch.Generator | None = None,
+              **dims):
+    """(SamModel in eval mode on ``default_device(device)``, SamProcessor)
+    at SAM ViT-H's published widths (``VIT_H``; ``dims`` override
+    SamVisionConfig keys, so tests build a tiny one), the processor
+    resizing the long side to the model's input size and padding to it.
+    With ``generator`` the weights are drawn from it
+    (``encoders.seeded_init_``)."""
+    from transformers import SamConfig, SamModel, SamVisionConfig
+    dev = default_device(device)
+    vision = dict(VIT_H, **dims)
+    cfg = SamConfig(vision_config=SamVisionConfig(**vision).to_dict())
+    with torch.device(dev):
+        model = SamModel(cfg)
+    if generator is not None:
+        from feature3dgs_tpu_torch.encoders import seeded_init_
+        seeded_init_(model, generator)
+    return _span_blocks(model.eval()), processor(vision["image_size"])
+
+
+def processor(size: int = 1024):
+    """SAM's processor for a ``size`` x ``size`` input: the long side
+    resized to ``size`` (PIL bilinear), rescaled, normalised with ImageNet's
+    mean and std, zero-padded at the bottom and right."""
+    from transformers import SamImageProcessor, SamProcessor
+    return SamProcessor(SamImageProcessor(
+        size={"longest_edge": size},
+        pad_size={"height": size, "width": size}))
 
 
 def load_sam(device=None):
@@ -37,30 +97,46 @@ def load_sam(device=None):
         model = SamModel.from_pretrained(
             path, local_files_only=local_only).to(dev).eval()
         proc = SamProcessor.from_pretrained(path, local_files_only=local_only)
-        _CACHE[dev] = (model, proc)
+        _CACHE[dev] = (_span_blocks(model), proc)
     return _CACHE[dev]
 
 
 @torch.no_grad()
 def encode_image(image_rgb, sam=None, device=None) -> torch.Tensor:
-    """[H,W,3] uint8 or [0,1] float image -> [256, 64h', 64w'] float32
-    embedding cropped to the aspect, on the model's device (the processor
-    resizes and pads on the host)."""
+    """[H,W,3] uint8 or [0,1] float image -> [256, gh', gw'] float32
+    embedding cropped to the aspect of the model's g x g grid (64 x 64 at
+    1024 / 16), on the model's device (the processor resizes and pads on
+    the host)."""
     model, proc = sam if sam is not None else load_sam(device)
     dev = next(model.parameters()).device
-    image_rgb = np.asarray(image_rgb)
-    if image_rgb.dtype != np.uint8:
-        image_rgb = (np.clip(image_rgb, 0, 1) * 255).astype(np.uint8)
-    pixels = proc(images=image_rgb, return_tensors="pt")["pixel_values"]
-    emb = model.get_image_embeddings(pixels.to(dev))[0].float()
-    # SAM pads the long side to 1024: the embedding region covering the
-    # image is 64 * short/long along the short axis
+    vision = model.config.vision_config
+    g = vision.image_size // vision.patch_size
+    with tracing.span("sam.encode"):
+        tracing.count("sam.images")
+        with tracing.span("sam.preprocess"):
+            image_rgb = np.asarray(image_rgb)
+            if image_rgb.dtype != np.uint8:
+                image_rgb = (np.clip(image_rgb, 0, 1) * 255).astype(np.uint8)
+            pixels = proc(images=image_rgb,
+                          return_tensors="pt")["pixel_values"]
+            tracing.count("host_wait.sam_upload")
+            pixels = pixels.to(dev)
+        emb = model.get_image_embeddings(pixels)[0].float()
+    # SAM pads the long side to the input size: the embedding region
+    # covering the image is g * short/long along the short axis (a view)
     h, w = image_rgb.shape[:2]
     if h > w:
-        return emb[:, :, :max(1, round(64 * w / h))]
+        return emb[:, :, :max(1, round(g * w / h))]
     if w > h:
-        return emb[:, :max(1, round(64 * h / w)), :]
+        return emb[:, :max(1, round(g * h / w)), :]
     return emb
+
+
+def export_embedding(emb: torch.Tensor) -> torch.Tensor:
+    """An embedding as the export saves it: fp16, contiguous, on the host
+    (the copy waits on the card)."""
+    tracing.count("host_wait.sam_embedding")
+    return emb.to(torch.float16).contiguous().cpu()
 
 
 def main(argv=None) -> int:
@@ -84,8 +160,7 @@ def main(argv=None) -> int:
         stem = os.path.splitext(name)[0]
         img = np.asarray(Image.open(os.path.join(args.input, name))
                          .convert("RGB"))
-        emb = encode_image(img, device=dev).to(torch.float16)
-        emb = emb.contiguous().cpu()
+        emb = export_embedding(encode_image(img, device=dev))
         base = os.path.join(args.output, stem + "_fmap_CxHxW")
         np.save(base + ".npy", emb.numpy())
         torch.save(emb, base + ".pt")

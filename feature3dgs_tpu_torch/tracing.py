@@ -1,6 +1,7 @@
 """Spans and counters inside the program, on the profiler's clock.
 
-``span(name)`` (or the decorator ``spanned(name)``) marks a stage where its
+``span(name)`` (or the decorator ``spanned(name)``, or ``span_calls(module,
+name)`` for a module the program did not write) marks a stage where its
 work happens: it records the name, the span it runs in, the host's start
 and end (``time.perf_counter_ns``) and, when CUDA is initialised, a pair of
 timing events on the current stream. ``count(name, n)`` adds to a
@@ -260,6 +261,26 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return traced
     return wrap
+
+
+def span_calls(module: torch.nn.Module, name: str) -> tuple:
+    """Run each call of ``module`` (one the program did not write, such as
+    a ``transformers`` block) in span ``name`` when tracing is on, through
+    a forward pre-hook and a forward hook that runs even when the call
+    raises; returns the two hook handles. Off, a call costs the hooks'
+    check of the profiler's state."""
+    opened = []
+
+    def enter(mod, args):
+        s = span(name)
+        s.__enter__()
+        opened.append(s)
+
+    def leave(mod, args, output):
+        opened.pop().__exit__(None, None, None)
+
+    return (module.register_forward_pre_hook(enter),
+            module.register_forward_hook(leave, always_call=True))
 
 
 def count(name: str, n: int = 1) -> None:

@@ -129,6 +129,17 @@ Phases, one line each; any failure raises and exits non-zero:
                (the library yardstick, one learning rate, contiguous
                gradients) times beside the 28-byte-an-element bound; the
                kernel's registers, local bytes and blocks an SM.
+  preprocess   the preprocess kernels (ops/csrc/preprocess.cu) at 1 M
+               Gaussians (bench.py's cloud, random scales, rotations,
+               opacities and SH), orbit view 0 at 1216x800, SH degree 3,
+               an ndc_offset and a live mask: the forward bit-equal to the
+               plain ops (ops/rasterize.py:_prep_plain), the backward to
+               core/projection.py:preprocess_backward on cotangents laid out
+               as the compositing hands them (NaN equal to NaN); each
+               kernel's ms (CUDA events, mean of 20) beside its bytes bound,
+               the plain versions' ms, and the autograd path's (the plain
+               ops' forward and autograd backward, what they replace); both
+               kernels' registers, local bytes and blocks an SM.
   parity       the parity CLI's scene (1,000 Gaussians, 208x160, SH degree
                3) at F = 8 and at F = 128: the CUDA route (one forward and
                one backward launch) in the exact and alpha_matmul modes
@@ -2072,9 +2083,128 @@ def phase_adam(dev):
     return row
 
 
+def phase_preprocess(dev):
+    """The preprocess kernels (ops/csrc/preprocess.cu) at 1 M Gaussians
+    (bench.py's cloud; random scales, rotations, opacities, SH and a live
+    mask), orbit view 0 at 1216 x 800, SH degree 3 with an ndc_offset: the
+    forward bit-equal to the plain ops (``_prep_plain``), the backward to
+    ``preprocess_backward`` on cotangents laid out as the compositing hands
+    them; each kernel's ms (CUDA events, mean of 20) beside its bytes bound,
+    the plain version's ms and the autograd path's (the plain ops' forward
+    with their autograd backward, what the kernels replace). Returns the
+    two kernels' rows for the kernels line, less their launches."""
+    import torch
+
+    from feature3dgs_tpu_torch.core.projection import preprocess_backward
+    from feature3dgs_tpu_torch.ops import cuda_preprocess as cp
+    from feature3dgs_tpu_torch.ops.rasterize import RasterConfig, _prep_plain
+    n, degree, m_rows = 1_000_000, 3, 16
+    params, _, _, _ = bench_scene(dev, n_gauss=n, f_dim=1)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    rot = randn(n, 4)
+    x = {"means3d": params.xyz.detach().contiguous(),
+         "scales": torch.exp(math.log(0.02) + 0.4 * randn(n, 3)),
+         "rotations": (rot / rot.norm(dim=1, keepdim=True)).contiguous(),
+         "shs": randn(n, m_rows, 3) * 0.4,
+         "opacities": torch.rand(n, generator=gen, device=dev) * 0.9 + 0.05,
+         "ndc_offset": torch.zeros((n, 2), device=dev),
+         "active_mask": torch.rand(n, generator=gen, device=dev) > 0.02}
+    del params
+    cam = bench_camera(device=dev)
+    grid = RasterConfig().grid(cam.width, cam.height)
+
+    def plain_fwd(inputs=x):
+        pre, xy, rmin, rmax, valid = _prep_plain(
+            inputs["means3d"], inputs["opacities"], cam, grid,
+            scales=inputs["scales"], rotations=inputs["rotations"],
+            cov3d_precomp=None, shs=inputs["shs"], sh_degree=degree,
+            colors_precomp=None, scale_modifier=1.0,
+            ndc_offset=inputs["ndc_offset"],
+            active_mask=inputs["active_mask"])
+        return (xy, pre.depth, pre.conic, pre.radius, pre.rgb, rmin, rmax,
+                pre.valid, valid)
+
+    def kernel_fwd():
+        return cp.preprocess_forward_cuda(
+            x["means3d"], x["scales"], x["rotations"], x["shs"],
+            x["opacities"], cam, grid, sh_degree=degree,
+            ndc_offset=x["ndc_offset"], active_mask=x["active_mask"])
+
+    def differing(names, got, want):
+        out = {}
+        for name, g, w in zip(names, got, want):
+            g, w = g.contiguous(), w.contiguous()
+            if g.dtype == torch.float32:
+                nan = torch.isnan(g) & torch.isnan(w)
+                out[name] = int(((g.view(torch.int32) != w.view(torch.int32))
+                                 & ~nan).sum())
+            else:
+                out[name] = int((g != w).sum())
+        return out
+
+    with torch.no_grad():
+        got, want = kernel_fwd(), plain_fwd()
+        fwd_bad = differing(("xy", "depth", "conic", "radius", "rgb",
+                             "rect_min", "rect_max", "pre_valid", "valid"),
+                            got, want)
+        valid = want[-1]
+        dg = randn(n, 10)
+        cts = (dg[:, 0:2], dg[:, 9], dg[:, 2:5], dg[:, 6:9])
+        bwd_args = (x["means3d"], x["scales"], x["rotations"], x["shs"],
+                    degree, 1.0, cam, valid, *cts)
+        gk = cp.preprocess_backward_cuda(*bwd_args, want_ndc_offset=True)
+        gp = preprocess_backward(*bwd_args, want_ndc_offset=True)
+        bwd_bad = differing(("g_means3d", "g_scales", "g_rotations",
+                             "g_shs", "g_ndc_offset"), gk, gp)
+    if any(fwd_bad.values()) or any(bwd_bad.values()):
+        raise AssertionError(f"preprocess kernels differ from the plain "
+                             f"versions: {fwd_bad} {bwd_bad}")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(kernel_fwd, 20)
+        bwd_ms = cuda_ms(lambda: cp.preprocess_backward_cuda(
+            *bwd_args, want_ndc_offset=True), 20)
+        plain_ms = cuda_ms(plain_fwd, 3)
+        plain_bwd_ms = cuda_ms(lambda: preprocess_backward(
+            *bwd_args, want_ndc_offset=True), 3)
+    keys = ("means3d", "scales", "rotations", "shs", "ndc_offset")
+
+    def autograd_step():
+        leaves = {k: x[k].clone().requires_grad_() for k in keys}
+        out = plain_fwd({**x, **leaves})
+        torch.autograd.grad((out[0], out[1], out[2], out[4]),
+                            list(leaves.values()), cts)
+    autograd_ms = cuda_ms(autograd_step, 3)
+    rows = (degree + 1) ** 2
+    fwd_bytes = n * (12 + 12 + 16 + 4 + 12 * rows + 1 + 8) \
+        + n * (8 + 4 + 12 + 4 + 12 + 16 + 2)
+    bwd_bytes = n * (12 + 12 + 16 + 12 * rows + 1 + 8 + 4 + 12 + 12) \
+        + n * (12 + 12 + 16 + 12 * m_rows + 8)
+    fwd_bound, bwd_bound = bytes_bound_ms(fwd_bytes), bytes_bound_ms(bwd_bytes)
+    say("preprocess", gaussians=n, degree=degree, valid=int(valid.sum()),
+        bit_equal=True, forward_ms=f"{fwd_ms:.4f}",
+        forward_bound_ms=f"{fwd_bound:.4f}",
+        forward_roofline=f"{fwd_bound / fwd_ms:.3f}",
+        backward_ms=f"{bwd_ms:.4f}", backward_bound_ms=f"{bwd_bound:.4f}",
+        backward_roofline=f"{bwd_bound / bwd_ms:.3f}",
+        plain_forward_ms=f"{plain_ms:.3f}",
+        plain_backward_ms=f"{plain_bwd_ms:.3f}",
+        autograd_path_ms=f"{autograd_ms:.3f}",
+        forward_attributes=json.dumps(cp.kernel_attributes(False, degree)),
+        backward_attributes=json.dumps(cp.kernel_attributes(True, degree)))
+    del x, got, want, gk, gp
+    torch.cuda.empty_cache()
+    return ({"ms": fwd_ms, "plain_ms": plain_ms, "bound_bytes": fwd_bytes,
+             "bound_ms": fwd_bound},
+            {"ms": bwd_ms, "plain_ms": plain_bwd_ms,
+             "autograd_path_ms": autograd_ms, "bound_bytes": bwd_bytes,
+             "bound_ms": bwd_bound})
+
+
 # the compressed schedule of the train_loop phase
 LOOP_STEPS, LOOP_DENSIFY_FROM, LOOP_DENSIFY_EVERY, LOOP_RESET_EVERY = 50, 5, 10, 20
 LOOP_SYNC_EVERY = 12
+PREP_COUNTERS = ("PREPROCESS_LAUNCHES", "PREPROCESS_BWD_LAUNCHES")
 LOOP_EXTENT = 5.5   # 1.1 x the cameras' distance from the scene's centre
 
 
@@ -2127,7 +2257,8 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
 
     import torch
     from feature3dgs_tpu_torch.model import gaussians as G
-    from feature3dgs_tpu_torch.ops import cuda_adam, cuda_raster
+    from feature3dgs_tpu_torch.ops import (cuda_adam, cuda_preprocess,
+                                           cuda_raster)
     names = (("FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES") if mm
              else ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES"))
     records = []
@@ -2136,6 +2267,7 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
         sync = it == 1 or it % LOOP_SYNC_EVERY == 0
         before = [getattr(cuda_raster, n) for n in names]
         adam_before = cuda_adam.ADAM_LAUNCHES
+        prep_before = [getattr(cuda_preprocess, n) for n in PREP_COUNTERS]
         counting = it in count_syncs
 
         def watched(fn, *a, **kw):
@@ -2164,6 +2296,9 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
                "launches": tuple(getattr(cuda_raster, n) - b
                                  for n, b in zip(names, before)),
                "adam_launches": cuda_adam.ADAM_LAUNCHES - adam_before,
+               "prep_launches": tuple(getattr(cuda_preprocess, n) - b
+                                      for n, b in zip(PREP_COUNTERS,
+                                                      prep_before)),
                "syncs": None}
         if counting:
             sites = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
@@ -2191,7 +2326,8 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
 def phase_train_loop(dev, scene, scene_s):
     import torch
     from feature3dgs_tpu_torch.model.ply_io import load_gaussians_ply
-    from feature3dgs_tpu_torch.ops import cuda_adam, cuda_raster
+    from feature3dgs_tpu_torch.ops import (cuda_adam, cuda_preprocess,
+                                           cuda_raster)
     from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
     from feature3dgs_tpu_torch.render import renderer
     from feature3dgs_tpu_torch.train import checkpoints as ckpt
@@ -2213,6 +2349,8 @@ def phase_train_loop(dev, scene, scene_s):
                  "FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES"):
         setattr(cuda_raster, name, 0)
     cuda_adam.ADAM_LAUNCHES = 0
+    for name in PREP_COUNTERS:
+        setattr(cuda_preprocess, name, 0)
     t0 = time.perf_counter()
     trainer = make(RasterConfig())
     init_s = time.perf_counter() - t0
@@ -2295,11 +2433,15 @@ def phase_train_loop(dev, scene, scene_s):
         raise AssertionError(f"train_loop: non-finite loss in {vals}")
     # one fused Adam launch a step for the Gaussians, one more for a decoder
     adam_per_step = 2 if trainer.speedup else 1
-    bad = [(r["it"], r["launches"], r["adam_launches"]) for r in records
-           if r["launches"] != (1, 1) or r["adam_launches"] != adam_per_step]
+    # and one preprocess launch each way: the view's forward, the step's
+    # backward
+    bad = [(r["it"], r["launches"], r["adam_launches"], r["prep_launches"])
+           for r in records
+           if r["launches"] != (1, 1) or r["adam_launches"] != adam_per_step
+           or r["prep_launches"] != (1, 1)]
     if bad:
-        raise AssertionError(f"train_loop: raster and Adam launches per step "
-                             f"{bad}")
+        raise AssertionError(f"train_loop: raster, Adam and preprocess "
+                             f"launches per step {bad}")
     log = trainer.densify_log
     totals = {k: sum(r[k] for r in log)
               for k in ("num_cloned", "num_split", "num_pruned")}
@@ -2353,6 +2495,7 @@ def phase_train_loop(dev, scene, scene_s):
     os.remove(ply)
     launches = (cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)
     adam_launches = cuda_adam.ADAM_LAUNCHES
+    prep_launches = [getattr(cuda_preprocess, n) for n in PREP_COUNTERS]
 
     main_run = [r for r in records if 3 <= r["it"] <= LOOP_STEPS
                 and not r["sync"]]
@@ -2387,6 +2530,8 @@ def phase_train_loop(dev, scene, scene_s):
         checkpoint_bytes=ckpt_bytes, served_active=served_active,
         forward_launches=launches[0], backward_launches=launches[1],
         adam_launches=adam_launches, adam_launches_per_step=adam_per_step,
+        preprocess_launches=prep_launches[0],
+        preprocess_backward_launches=prep_launches[1],
         loss_first=f"{vals[0]:.6f}", loss_last=f"{vals[-1]:.6f}")
     say("train_loop_sync_sites", per_step=json.dumps(sites).replace(" ", ""))
     say("train_loop_rounds", log=json.dumps(log).replace(" ", ""))
@@ -2398,8 +2543,10 @@ def phase_train_loop(dev, scene, scene_s):
     alpha = make(RasterConfig(alpha_matmul=True))
     a_records = run_loop(alpha, 10, dev, mm=True)
     a_vals = [float(r["loss"]) for r in a_records]
-    a_bad = [(r["launches"], r["adam_launches"]) for r in a_records
-             if r["launches"] != (1, 1) or r["adam_launches"] != adam_per_step]
+    a_bad = [(r["launches"], r["adam_launches"], r["prep_launches"])
+             for r in a_records
+             if r["launches"] != (1, 1) or r["adam_launches"] != adam_per_step
+             or r["prep_launches"] != (1, 1)]
     if (not all(math.isfinite(v) for v in a_vals) or a_bad or launches != (
             cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)):
         raise AssertionError(f"train_loop alpha_matmul: losses {a_vals}, "
@@ -2412,9 +2559,14 @@ def phase_train_loop(dev, scene, scene_s):
         forward_mm_launches=mm_launches[0],
         backward_mm_launches=mm_launches[1],
         adam_launches=cuda_adam.ADAM_LAUNCHES - adam_launches,
+        preprocess_launches=cuda_preprocess.PREPROCESS_LAUNCHES
+        - prep_launches[0],
+        preprocess_backward_launches=cuda_preprocess.PREPROCESS_BWD_LAUNCHES
+        - prep_launches[1],
         loss_first=f"{a_vals[0]:.6f}", loss_last=f"{a_vals[-1]:.6f}",
         exact_loss_first=f"{vals[0]:.6f}")
-    return launches, mm_launches, cuda_adam.ADAM_LAUNCHES
+    return (launches, mm_launches, cuda_adam.ADAM_LAUNCHES,
+            tuple(getattr(cuda_preprocess, n) for n in PREP_COUNTERS))
 
 
 def free_port() -> int:
@@ -3172,7 +3324,7 @@ def main(argv=None) -> int:
 
     from feature3dgs_tpu_torch import default_device
     from feature3dgs_tpu_torch.native import loader as native
-    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops import cuda_preprocess, cuda_raster
     dev = default_device()
 
     t0 = time.time()
@@ -3235,6 +3387,8 @@ def main(argv=None) -> int:
         wide = phase_kernel_wide(dev)
     if want("adam"):
         adam_row = phase_adam(dev)
+    if want("preprocess"):
+        prep_rows = phase_preprocess(dev)
     if want("setup"):
         phase_setup()
     if want("train"):
@@ -3256,7 +3410,8 @@ def main(argv=None) -> int:
     if want("kernel_loop"):
         at_loop = phase_kernel_loop(dev, scene)
     if want("train_loop"):
-        loop, loop_mm, loop_adam = phase_train_loop(dev, scene, scene_s)
+        loop, loop_mm, loop_adam, loop_prep = phase_train_loop(dev, scene,
+                                                               scene_s)
     parity_cli = phase_parity(dev) if want("parity") else None
     try:
         if want("train_cli") or want("serve_cli"):
@@ -3305,7 +3460,13 @@ def main(argv=None) -> int:
              **at_loop[("bwd", True)], **at_batch4[True],
              **wide[("bwd", True)]),
         dict(name="adam", route="cuda", source=src + "adam.cu",
-             replaces=None, launches=loop_adam, **adam_row)]}))
+             replaces=None, launches=loop_adam, **adam_row),
+        dict(name="preprocess_forward", route="cuda",
+             source=src + "preprocess.cu", replaces=None,
+             launches=loop_prep[0], **prep_rows[0]),
+        dict(name="preprocess_backward", route="cuda",
+             source=src + "preprocess.cu", replaces=None,
+             launches=loop_prep[1], **prep_rows[1])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

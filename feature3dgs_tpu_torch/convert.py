@@ -83,9 +83,12 @@ def camera_from_numpy(view, proj, campos, tan_fovx, tan_fovy, width: int,
                       height: int, device=None) -> CameraView:
     device = default_device(device)
     tracing.count("host_wait.camera_upload", 5)
+    # the preprocess kernels read the camera row-major; a viewer's matrices
+    # may arrive transposed
+    row_major = lambda x: _f32(np.ascontiguousarray(x), device)
     return CameraView(
-        view=_f32(view, device), proj=_f32(proj, device),
-        campos=_f32(campos, device),
+        view=row_major(view), proj=row_major(proj),
+        campos=row_major(campos),
         tan_fovx=_f32(np.float32(tan_fovx), device),
         tan_fovy=_f32(np.float32(tan_fovy), device),
         width=int(width), height=int(height))

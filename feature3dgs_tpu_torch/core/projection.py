@@ -9,6 +9,11 @@ eigenvalue)) with the ``max(0.1, ...)`` discriminant guard.
 The affine transforms are written elementwise in the JAX package's order
 (not as ``@``), so that projected pixel means agree to the last bits and
 ``tile_rect`` floors do not flip at tile borders.
+
+``preprocess_backward`` is the closed-form backward of the scales +
+rotations + SH path, which the backward kernel (ops/csrc/preprocess.cu)
+repeats op for op; ``ops/rasterize.py:_Preprocess`` takes it for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -238,3 +243,202 @@ def preprocess(
     radius = torch.where(valid, radius, torch.zeros_like(radius))
     return Preprocessed(xy=xy, depth=p_view[:, 2], conic=conic, radius=radius,
                         rgb=rgb, opacity=opacities, valid=valid)
+
+
+def _sum_left(terms):
+    """terms[0] + terms[1] + ..., left to right."""
+    acc = terms[0]
+    for term in terms[1:]:
+        acc = acc + term
+    return acc
+
+
+def preprocess_backward(means3d, scales, rotations, shs, sh_degree: int,
+                        scale_modifier, cam: CameraView, valid, g_xy, g_depth,
+                        g_conic, g_rgb, want_ndc_offset: bool = False):
+    """The closed-form backward of ``preprocess`` on the scales + rotations
+    + SH path, plus the ``ndc_offset * wh * 0.5`` added to xy
+    (``ops/rasterize.py``): given the cotangents of xy [N,2], depth [N],
+    conic [N,3] and rgb [N,3] (None = zero), returns (g_means3d, g_scales,
+    g_rotations, g_shs, g_ndc_offset or None). Rows where ``valid`` is
+    False are exact zeros (they reach no pixel, so no cotangent); SH rows
+    at and above (sh_degree+1)**2 are zero.
+
+    It recomputes what the forward computed, op for op as ``preprocess``
+    does, and saves nothing; every line is one elementwise op on [N]
+    columns, in the order the backward kernel (ops/csrc/preprocess.cu)
+    repeats, so the two agree bit for bit on the card. Where the forward
+    clamps (the frustum clamp of the EWA Jacobian, the colour's max(., 0))
+    the derivative follows autograd's: half to each side at a tie of
+    ``minimum``/``maximum``, through ``clamp_min`` where the value equals
+    the bound."""
+    n = means3d.shape[0]
+    zeros = lambda k: torch.zeros((n, k), dtype=means3d.dtype,
+                                  device=means3d.device)
+    g_xy = zeros(2) if g_xy is None else g_xy
+    g_depth = zeros(1)[:, 0] if g_depth is None else g_depth
+    g_conic = zeros(3) if g_conic is None else g_conic
+    g_rgb = zeros(3) if g_rgb is None else g_rgb
+    mx, my, mz = means3d[:, 0], means3d[:, 1], means3d[:, 2]
+    v, p = cam.view, cam.proj
+
+    # forward: the view-space point, the homogeneous projection
+    t = [_affine_row(means3d, v, r) for r in range(3)]
+    tz = t[2]
+    hx = _affine_row(means3d, p, 0)
+    hy = _affine_row(means3d, p, 1)
+    inv_w = 1.0 / (_affine_row(means3d, p, 3) + 1e-7)
+
+    # forward: R and the 3D covariance (build_cov3d)
+    qr, qx, qy, qz = (rotations[:, 0], rotations[:, 1], rotations[:, 2],
+                      rotations[:, 3])
+    rm = [[1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qr * qz),
+           2 * (qx * qz + qr * qy)],
+          [2 * (qx * qy + qr * qz), 1 - 2 * (qx * qx + qz * qz),
+           2 * (qy * qz - qr * qx)],
+          [2 * (qx * qz - qr * qy), 2 * (qy * qz + qr * qx),
+           1 - 2 * (qx * qx + qy * qy)]]
+    s = [scale_modifier * scales[:, k] for k in range(3)]
+    sq = [s[k] ** 2 for k in range(3)]
+    pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+    def cov_entry(i, j):
+        return (sq[0] * rm[i][0] * rm[j][0] + sq[1] * rm[i][1] * rm[j][1]
+                + sq[2] * rm[i][2] * rm[j][2])
+    cov = {ij: cov_entry(*ij) for ij in pairs}
+    sig = lambda i, j: cov[(min(i, j), max(i, j))]
+
+    # forward: the EWA Jacobian with the frustum clamp (compute_cov2d)
+    limx = 1.3 * cam.tan_fovx
+    limy = 1.3 * cam.tan_fovy
+    ux, uy = t[0] / tz, t[1] / tz
+    cx = torch.minimum(torch.maximum(ux, -limx), limx)
+    cy = torch.minimum(torch.maximum(uy, -limy), limy)
+    txc, tyc = cx * tz, cy * tz
+    fx, fy = cam.focal_x, cam.focal_y
+    inv_z = 1.0 / tz
+    inv_z2 = inv_z * inv_z
+    nfx, nfy = -fx, -fy
+    j00, j02 = fx * inv_z, nfx * txc * inv_z2
+    j11, j12 = fy * inv_z, nfy * tyc * inv_z2
+    t0 = [j00 * v[0, k] + j02 * v[2, k] for k in range(3)]
+    t1 = [j11 * v[1, k] + j12 * v[2, k] for k in range(3)]
+
+    def sig_mul(u):
+        return [sig(i, 0) * u[0] + sig(i, 1) * u[1] + sig(i, 2) * u[2]
+                for i in range(3)]
+
+    def dot3(u, w):
+        return u[0] * w[0] + u[1] * w[1] + u[2] * w[2]
+    s0, s1 = sig_mul(t0), sig_mul(t1)
+    a = dot3(t0, s0) + 0.3
+    b = dot3(t1, s0)
+    c = dot3(t1, s1) + 0.3
+    det = a * c - b * b
+    inv_det = 1.0 / det
+
+    # backward: conic = (c, -b, a) / det
+    gc0, gc1, gc2 = g_conic[:, 0], g_conic[:, 1], g_conic[:, 2]
+    g_inv = gc0 * c - gc1 * b + gc2 * a
+    g_det = -(g_inv * inv_det * inv_det)
+    g_a = gc2 * inv_det + g_det * c
+    g_b = -(gc1 * inv_det) - g_det * (2.0 * b)
+    g_c = gc0 * inv_det + g_det * a
+
+    # backward: a = t0' S t0, b = t1' S t0, c = t1' S t1
+    g_a2, g_c2 = 2.0 * g_a, 2.0 * g_c
+    g_t0 = [g_a2 * s0[k] + g_b * s1[k] for k in range(3)]
+    g_t1 = [g_b * s0[k] + g_c2 * s1[k] for k in range(3)]
+    g_cov = {}
+    for i, j in pairs:
+        if i == j:
+            g_cov[(i, j)] = (g_a * (t0[i] * t0[i]) + g_b * (t1[i] * t0[i])
+                             + g_c * (t1[i] * t1[i]))
+        else:
+            g_cov[(i, j)] = (g_a2 * (t0[i] * t0[j])
+                             + g_b * (t1[i] * t0[j] + t1[j] * t0[i])
+                             + g_c2 * (t1[i] * t1[j]))
+
+    # backward: the Jacobian rows, 1/tz, the clamp and t = V m
+    g_j00 = dot3(g_t0, [v[0, k] for k in range(3)])
+    g_j02 = dot3(g_t0, [v[2, k] for k in range(3)])
+    g_j11 = dot3(g_t1, [v[1, k] for k in range(3)])
+    g_j12 = dot3(g_t1, [v[2, k] for k in range(3)])
+    g_txc = g_j02 * inv_z2 * nfx
+    g_tyc = g_j12 * inv_z2 * nfy
+    g_inv_z2 = g_j02 * (nfx * txc) + g_j12 * (nfy * tyc)
+    g_inv_z = g_j00 * fx + g_j11 * fy + g_inv_z2 * (2.0 * inv_z)
+
+    def clamp_factor(u, lo, hi):
+        # d min(max(u, lo), hi) / du as autograd takes it: 1/2 at each tie
+        up = torch.where(u > lo, 1.0, torch.where(u == lo, 0.5, 0.0))
+        m = torch.maximum(u, lo)
+        return up * torch.where(m < hi, 1.0, torch.where(m == hi, 0.5, 0.0))
+    g_ux = g_txc * tz * clamp_factor(ux, -limx, limx)
+    g_uy = g_tyc * tz * clamp_factor(uy, -limy, limy)
+    g_tx = g_ux / tz
+    g_ty = g_uy / tz
+    g_tz = (g_depth + g_txc * cx + g_tyc * cy
+            - g_inv_z * inv_z * inv_z - g_ux * ux / tz - g_uy * uy / tz)
+
+    # backward: xy = ((ndc + 1) * wh - 1) * 0.5, ndc = h / w
+    g_nx = g_xy[:, 0] * 0.5 * cam.width
+    g_ny = g_xy[:, 1] * 0.5 * cam.height
+    g_hx, g_hy = g_nx * inv_w, g_ny * inv_w
+    g_hw = -((g_nx * hx + g_ny * hy) * inv_w * inv_w)
+
+    # backward: the colour's direction (sh_to_rgb)
+    d = means3d - cam.campos[None, :]
+    length = torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
+    dirs = d / length
+    pre = sh_lib.eval_sh(sh_degree, shs, dirs) + 0.5
+    g_pre = torch.where(pre >= 0.0, g_rgb, torch.zeros_like(g_rgb))
+    g_shs, g_dirs = sh_lib.sh_backward(sh_degree, shs, dirs, g_pre)
+    dg = dot3([dirs[:, k] for k in range(3)],
+              [g_dirs[:, k] for k in range(3)])
+    g_d = [(g_dirs[:, k] - dirs[:, k] * dg) / length[:, 0] for k in range(3)]
+
+    # backward: means (t, h, w and the direction), per coordinate
+    g_means = torch.stack(
+        [g_tx * v[0, k] + g_ty * v[1, k] + g_tz * v[2, k] + g_hx * p[0, k]
+         + g_hy * p[1, k] + g_hw * p[3, k] + g_d[k] for k in range(3)], -1)
+
+    # backward: the covariance's R and S^2, then q and the scales
+    g_sq = [g_cov[(0, 0)] * (rm[0][k] * rm[0][k])
+            + g_cov[(0, 1)] * (rm[0][k] * rm[1][k])
+            + g_cov[(0, 2)] * (rm[0][k] * rm[2][k])
+            + g_cov[(1, 1)] * (rm[1][k] * rm[1][k])
+            + g_cov[(1, 2)] * (rm[1][k] * rm[2][k])
+            + g_cov[(2, 2)] * (rm[2][k] * rm[2][k]) for k in range(3)]
+    g_scales = torch.stack([g_sq[k] * (2.0 * s[k]) * scale_modifier
+                            for k in range(3)], -1)
+    # g_R[i][k] = sq_k * (2 g_ii R_ik + sum_{j != i} g_ij R_jk)
+    g_rm = [[sq[k] * _sum_left(
+        [(2.0 * g_cov[(i, i)]) * rm[i][k]]
+        + [g_cov[(min(i, j), max(i, j))] * rm[j][k]
+           for j in range(3) if j != i]) for k in range(3)] for i in range(3)]
+    g_r = 2.0 * (-(qz * g_rm[0][1]) + qy * g_rm[0][2] + qz * g_rm[1][0]
+                 - qx * g_rm[1][2] - qy * g_rm[2][0] + qx * g_rm[2][1])
+    g_qx = (2.0 * (qy * g_rm[0][1] + qz * g_rm[0][2] + qy * g_rm[1][0]
+                   - qr * g_rm[1][2] + qz * g_rm[2][0] + qr * g_rm[2][1])
+            - 4.0 * qx * (g_rm[1][1] + g_rm[2][2]))
+    g_qy = (2.0 * (qx * g_rm[0][1] + qr * g_rm[0][2] + qx * g_rm[1][0]
+                   + qz * g_rm[1][2] - qr * g_rm[2][0] + qz * g_rm[2][1])
+            - 4.0 * qy * (g_rm[0][0] + g_rm[2][2]))
+    g_qz = (2.0 * (-(qr * g_rm[0][1]) + qx * g_rm[0][2] + qr * g_rm[1][0]
+                   + qy * g_rm[1][2] + qx * g_rm[2][0] + qy * g_rm[2][1])
+            - 4.0 * qz * (g_rm[0][0] + g_rm[1][1]))
+    g_rot = torch.stack([g_r, g_qx, g_qy, g_qz], -1)
+
+    keep = valid[:, None]
+    out = [torch.where(keep, g, torch.zeros_like(g))
+           for g in (g_means, g_scales, g_rot)]
+    out.append(torch.where(valid[:, None, None], g_shs,
+                           torch.zeros_like(g_shs)))
+    g_ndc = None
+    if want_ndc_offset:
+        wh = torch.stack([torch.full_like(mx, cam.width),
+                          torch.full_like(mx, cam.height)], -1)
+        g_ndc = torch.where(keep, g_xy * wh * 0.5, torch.zeros_like(g_xy))
+    return (*out, g_ndc)
+

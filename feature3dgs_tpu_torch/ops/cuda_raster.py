@@ -8,7 +8,8 @@ into its own shared library with a plain C interface at first use (one
 repository root, cached by the hash of the source, the headers it may
 include and the flags, and called through ``ctypes`` on PyTorch's current
 stream. ``build`` compiles ops/csrc/adam.cu beside them, the fused Adam
-that ops/cuda_adam.py loads and calls.
+that ops/cuda_adam.py loads and calls, and ops/csrc/preprocess.cu, the
+per-Gaussian preprocess that ops/cuda_preprocess.py loads and calls.
 
 The launch plans live here as pure functions, so the CPU tests reach them:
 ``forward_plan`` (channel tiles a block accumulates in registers, channel
@@ -55,7 +56,8 @@ BACKWARD_MM_LAUNCHES = 0
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = {"raster_forward": _CSRC / "raster_forward.cu",
             "raster_backward": _CSRC / "raster_backward.cu",
-            "adam": _CSRC / "adam.cu"}
+            "adam": _CSRC / "adam.cu",
+            "preprocess": _CSRC / "preprocess.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -2,11 +2,15 @@
 
 Port of ``feature3dgs_tpu/ops/rasterize.py:rasterize``: one differentiable
 call renders RGB + N-dim semantic features + depth, returned HWC, with the
-same radii, visibility, ``n_contrib`` and overflow counters. Preprocess is
-ordinary autograd; binning is integer work on detached inputs; the
-compositing is one ``torch.autograd.Function`` whose forward and backward
-are the CUDA kernels (or, for CPU tensors, their plain versions), and whose
-per-entry gradient rows are summed per Gaussian by ``ops.segment``.
+same radii, visibility, ``n_contrib`` and overflow counters. The
+preprocess (projection, EWA covariance, colour from SH, tile rectangle and
+cull) is one ``torch.autograd.Function`` whose forward and backward are one
+CUDA kernel each (or, for CPU tensors, the plain ops and their closed-form
+backward); a precomputed covariance or colour takes ordinary autograd.
+Binning is integer work on detached inputs; the compositing is one
+``torch.autograd.Function`` whose forward and backward are the CUDA kernels
+(or, for CPU tensors, their plain versions), and whose per-entry gradient
+rows are summed per Gaussian by ``ops.segment``.
 ``ndc_offset`` (a zero [N,2] tensor that requires grad) yields the NDC-space
 positional gradients densification accumulates. ``rasterize_batch`` renders
 B same-resolution views forward-only through one binning sort and one
@@ -29,6 +33,8 @@ from feature3dgs_tpu_torch.ops.binning import TileGrid
 from feature3dgs_tpu_torch.ops.composite import (ALPHA_MIN, CompositeOutput,
                                                  composite_plain,
                                                  composite_plain_backward)
+from feature3dgs_tpu_torch.ops.cuda_preprocess import (
+    preprocess_backward_cuda, preprocess_forward_cuda)
 from feature3dgs_tpu_torch.ops.cuda_raster import (raster_backward_cuda,
                                                    raster_forward_cuda)
 from feature3dgs_tpu_torch.ops.segment import SegmentPlan, camera_rows
@@ -140,12 +146,11 @@ def mark_visible(means3d: torch.Tensor, cam: proj_lib.CameraView) -> torch.Tenso
     return in_frustum
 
 
-@tracing.spanned("raster.preprocess")
-def _prep_view(means3d, opacities, cam, grid, *, scales, rotations,
-               cov3d_precomp, shs, sh_degree, colors_precomp, scale_modifier,
-               ndc_offset, active_mask):
-    """Preprocess + tile-rect cull. Returns (pre, xy, rect_min, rect_max,
-    valid)."""
+def _prep_plain(means3d, opacities, cam, grid, *, scales, rotations,
+                cov3d_precomp, shs, sh_degree, colors_precomp, scale_modifier,
+                ndc_offset, active_mask):
+    """The preprocess and tile-rect cull as plain ops: the autograd path of
+    the editing inputs, and the forward of ``_Preprocess``'s plain half."""
     pre = proj_lib.preprocess(
         means3d, opacities, cam,
         scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
@@ -165,6 +170,109 @@ def _prep_view(means3d, opacities, cam, grid, *, scales, rotations,
     valid = pre.valid & (area > 0)
     if active_mask is not None:
         valid = valid & active_mask
+    return pre, xy, rect_min, rect_max, valid
+
+
+def _preprocess_path(config: RasterConfig, means3d, scales, rotations, shs,
+                     cov3d_precomp, colors_precomp) -> str:
+    """The one place the preprocess is chosen, by what the inputs show:
+    scales + rotations + SH take ``_Preprocess``, its kernels ("kernels")
+    where ``_use_kernels`` picks them, else its plain halves ("plain"); a
+    precomputed covariance or colour (the editing paths) takes autograd
+    through the plain ops ("autograd"). The camera is not differentiated."""
+    if (scales is None or rotations is None or shs is None
+            or cov3d_precomp is not None or colors_precomp is not None):
+        return "autograd"
+    return "kernels" if _use_kernels(config, means3d) else "plain"
+
+
+class _Preprocess(torch.autograd.Function):
+    """The per-Gaussian preprocess of one view on the scales + rotations +
+    SH path, from ``proj_lib.preprocess`` through the cull. Differentiable
+    inputs: means3d, scales, rotations, shs, ndc_offset; differentiable
+    outputs: xy (ndc_offset added), depth, conic, rgb; radius, rect_min,
+    rect_max, pre_valid and valid are not. ``kernels``: one forward and one
+    backward launch (ops/cuda_preprocess.py), else the plain forward
+    (``_prep_plain``) and the closed-form backward
+    (``proj_lib.preprocess_backward``), which the kernels equal bit for bit
+    on the card. The backward recomputes from the inputs and saves
+    nothing else."""
+
+    @staticmethod
+    def forward(ctx, means3d, scales, rotations, shs, ndc_offset, opacities,
+                active_mask, cam, grid, sh_degree, scale_modifier, kernels):
+        if kernels:
+            means3d, scales, rotations, shs, opacities = (
+                x.contiguous() for x in (means3d, scales, rotations, shs,
+                                         opacities))
+            ndc_offset, active_mask = (
+                None if x is None else x.contiguous()
+                for x in (ndc_offset, active_mask))
+            out = preprocess_forward_cuda(
+                means3d, scales, rotations, shs, opacities, cam, grid,
+                sh_degree=sh_degree, scale_modifier=scale_modifier,
+                ndc_offset=ndc_offset, active_mask=active_mask)
+        else:
+            pre, xy, rect_min, rect_max, valid = _prep_plain(
+                means3d, opacities, cam, grid, scales=scales,
+                rotations=rotations, cov3d_precomp=None, shs=shs,
+                sh_degree=sh_degree, colors_precomp=None,
+                scale_modifier=scale_modifier, ndc_offset=ndc_offset,
+                active_mask=active_mask)
+            out = (xy, pre.depth, pre.conic, pre.radius, pre.rgb, rect_min,
+                   rect_max, pre.valid, valid)
+        xy, depth, conic, radius, rgb, rect_min, rect_max, pre_valid, valid \
+            = out
+        ctx.save_for_backward(means3d, scales, rotations, shs, valid)
+        # an output no loss reached comes to backward as None: read as zero
+        ctx.set_materialize_grads(False)
+        ctx.cam, ctx.sh_degree, ctx.kernels = cam, sh_degree, kernels
+        ctx.scale_modifier = scale_modifier
+        ctx.mark_non_differentiable(radius, rect_min, rect_max, pre_valid,
+                                    valid)
+        return xy, depth, conic, rgb, radius, rect_min, rect_max, pre_valid, \
+            valid
+
+    @staticmethod
+    def backward(ctx, g_xy, g_depth, g_conic, g_rgb, *_non_differentiable):
+        means3d, scales, rotations, shs, valid = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with tracing.span("raster.preprocess_backward"):
+            fn = (preprocess_backward_cuda if ctx.kernels
+                  else proj_lib.preprocess_backward)
+            grads = fn(means3d, scales, rotations, shs, ctx.sh_degree,
+                       ctx.scale_modifier, ctx.cam, valid, g_xy, g_depth,
+                       g_conic, g_rgb, want_ndc_offset=need[4])
+        return (*(g if want else None for g, want in zip(grads, need[:5])),
+                None, None, None, None, None, None, None)
+
+
+@tracing.spanned("raster.preprocess")
+def _prep_view(means3d, opacities, cam, grid, *, scales, rotations,
+               cov3d_precomp, shs, sh_degree, colors_precomp, scale_modifier,
+               ndc_offset, active_mask, config: RasterConfig):
+    """Preprocess + tile-rect cull. Returns (pre, xy, rect_min, rect_max,
+    valid); on ``_Preprocess``'s path ``pre.xy`` is ``xy``, the offset
+    added. Counters ``raster.preprocess_fused`` and
+    ``raster.preprocess_plain`` count the views the kernels and the plain
+    ops served."""
+    path = _preprocess_path(config, means3d, scales, rotations, shs,
+                            cov3d_precomp, colors_precomp)
+    tracing.count("raster.preprocess_fused" if path == "kernels"
+                  else "raster.preprocess_plain")
+    if path == "autograd":
+        return _prep_plain(
+            means3d, opacities, cam, grid, scales=scales, rotations=rotations,
+            cov3d_precomp=cov3d_precomp, shs=shs, sh_degree=sh_degree,
+            colors_precomp=colors_precomp, scale_modifier=scale_modifier,
+            ndc_offset=ndc_offset, active_mask=active_mask)
+    (xy, depth, conic, rgb, radius, rect_min, rect_max, pre_valid,
+     valid) = _Preprocess.apply(
+        means3d, scales, rotations, shs, ndc_offset, opacities, active_mask,
+        cam, grid, sh_degree, scale_modifier, path == "kernels")
+    pre = proj_lib.Preprocessed(xy=xy, depth=depth, conic=conic,
+                                radius=radius, rgb=rgb, opacity=opacities,
+                                valid=pre_valid)
     return pre, xy, rect_min, rect_max, valid
 
 
@@ -192,7 +300,7 @@ def composite_inputs(means3d, opacities, semantic_features, cam, *,
         means3d, opacities, cam, grid, scales=scales, rotations=rotations,
         cov3d_precomp=cov3d_precomp, shs=shs, sh_degree=sh_degree,
         colors_precomp=colors_precomp, scale_modifier=scale_modifier,
-        ndc_offset=ndc_offset, active_mask=active_mask)
+        ndc_offset=ndc_offset, active_mask=active_mask, config=config)
     bins = binning_lib.bin_gaussians(
         rect_min, rect_max, pre.depth.detach(), valid, grid,
         instance_capacity=config.instance_capacity_or_default)
@@ -386,7 +494,8 @@ def composite_inputs_batch(means3d, opacities, semantic_features, cams, *,
         means3d, opacities, cam, grid, scales=scales, rotations=rotations,
         cov3d_precomp=None, shs=shs, sh_degree=sh_degree,
         colors_precomp=colors_precomp, scale_modifier=scale_modifier,
-        ndc_offset=ndc_offset, active_mask=active_mask) for cam in views]
+        ndc_offset=ndc_offset, active_mask=active_mask, config=config)
+        for cam in views]
     pre = proj_lib.Preprocessed(*(torch.stack(x) for x in zip(
         *(p[0] for p in preps))))
     xy, rect_min, rect_max, valid = (torch.stack([p[i] for p in preps])

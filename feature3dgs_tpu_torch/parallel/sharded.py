@@ -607,7 +607,7 @@ def _exchange_losses(leaves: G.GaussianParams, alive, sh_degree: int,
             leaves.xyz, opacity, views[r * b_loc + i], grid, scales=scales,
             rotations=rots, cov3d_precomp=None, shs=shs, sh_degree=sh_degree,
             colors_precomp=None, scale_modifier=1.0, ndc_offset=ndc_offset,
-            active_mask=alive) for r in range(n_data)]
+            active_mask=alive, config=rcfg) for r in range(n_data)]
         misc = _gather_rows(torch.stack([torch.cat(
             [xy, pre.conic, pre.opacity[:, None], pre.rgb, pre.depth[:, None]],
             1) for pre, xy, _, _, _ in preps], 1), mesh)  # [cap, n_data, 10]

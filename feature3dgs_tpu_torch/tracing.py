@@ -23,7 +23,8 @@ tensor (the summary of an ended session is kept, and its events are recorded
 again by later sessions).
 
 Spans nest per thread. A span opened on a thread with no span open (the
-autograd engine's device thread, which runs ``_Composite.backward``) takes
+autograd engine's device thread, which runs ``_Composite.backward`` and
+``_Preprocess.backward``) takes
 as its parent the innermost span open on the thread that started the
 session (``train.backward`` around ``torch.autograd.grad``). A session
 holds at most ``MAX_SPANS`` spans and ``MAX_KEPT`` kept tensors (a kept

@@ -32,7 +32,8 @@ PARENTS = {
     "raster.forward": "render", "loss.rgb": "train.step",
     "loss.resize": "train.step", "decoder": "train.step",
     "train.backward": "train.step", "raster.backward": "train.backward",
-    "raster.segment_sum": "train.backward", "optim.adam": "train.step",
+    "raster.segment_sum": "train.backward",
+    "raster.preprocess_backward": "train.backward", "optim.adam": "train.step",
     "train.sync": "train.step",
 }
 # host waits of one synced step of this scene, by site

@@ -3324,22 +3324,24 @@ def main(argv=None) -> int:
 
     from feature3dgs_tpu_torch import default_device
     from feature3dgs_tpu_torch.native import loader as native
-    from feature3dgs_tpu_torch.ops import cuda_preprocess, cuda_raster
+    from feature3dgs_tpu_torch.ops import (cuda_preprocess, cuda_raster,
+                                           kernel_lib)
     dev = default_device()
 
     t0 = time.time()
-    with ThreadPoolExecutor(1) as pool:        # g++ beside the two nvcc
+    with ThreadPoolExecutor(1) as pool:        # g++ beside the nvcc builds
         native_built = pool.submit(native.build)
-        cuda_raster.build()
+        libraries = kernel_lib.build()
         native_lib = native_built.result()
     ptxas, entry = [], ""
-    for ln in cuda_raster.BUILD_LOG.splitlines():
+    for ln in kernel_lib.BUILD_LOG.splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
         elif "registers" in ln or "spill" in ln:
             ptxas.append(f"{entry}: {ln.strip()}")
     say("build", seconds=f"{time.time() - t0:.1f}", ptxas=json.dumps(ptxas),
-        native=os.path.relpath(native_lib, ROOT))
+        native=os.path.relpath(native_lib, ROOT),
+        libraries=json.dumps(sorted(p.name for p in libraries.values())))
     p_main = 32 * 16
     for name in ("raster_forward", "raster_backward"):
         for mm in (False, True):

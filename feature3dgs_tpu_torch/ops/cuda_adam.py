@@ -4,9 +4,8 @@ One launch updates every tensor of a group in place (``model/optim.py``'s
 seven GaussianParams fields, or the decoder's w and b): p, g, mu and nu
 are read once and p, mu and nu written once, with no temporaries, bit-equal
 on the card to the plain version ``model/optim.py:_adam_``. The library is
-built with the raster kernels (``cuda_raster.build``: its own ``nvcc`` in
-parallel, hashed and cached in ``build/kernels/``) and called through
-``ctypes`` on PyTorch's current stream.
+built and opened by ``ops.kernel_lib`` with the signatures of
+``LIBRARIES`` and called through ``ctypes`` on PyTorch's current stream.
 
 A launch is described by a table passed by value (``AdamTable``, the C
 struct's mirror): each tensor's four pointers, element count, gradient
@@ -22,21 +21,18 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import NamedTuple
 
 import torch
 
-from feature3dgs_tpu_torch.ops import cuda_raster
+from feature3dgs_tpu_torch.ops.kernel_lib import (check, check_aligned, load,
+                                                  raise_on)
 
 # elements a block updates (CHUNK in adam.cu) and tensors a launch
 CHUNK = 4096
 MAX_TENSORS = 16
 # launches since import (or since a caller reset it)
 ADAM_LAUNCHES = 0
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 class AdamTable(ctypes.Structure):
@@ -123,8 +119,8 @@ def adam_entries(params: dict, grads: dict, mu: dict, nu: dict, lrs: dict,
     for k, p in params.items():
         shape = tuple(p.shape)
         for name, x in ((k, p), (f"mu[{k}]", mu[k]), (f"nu[{k}]", nu[k])):
-            cuda_raster._check(name, x, f32, shape, device)
-            cuda_raster._check_aligned(name, x)
+            check(name, x, f32, shape, device)
+            check_aligned(name, x)
         g = grads[k]
         if g.device != device:
             raise ValueError(f"grad[{k}] is on {g.device}, expected {device}")
@@ -158,29 +154,20 @@ def adam_table(entries: list, plan: AdamPlan, b1: float, b2: float,
     return t
 
 
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# {library: (signatures, constants)}, as ops.kernel_lib.load takes them
+LIBRARIES = {"adam": (
+    {"f3dgs_adam": ([ctypes.POINTER(AdamTable), _i, _p, _p, _p], _i),
+     "f3dgs_adam_chunk": ([], _i),
+     "f3dgs_adam_max_tensors": ([], _i),
+     "f3dgs_adam_table_bytes": ([], ctypes.c_size_t),
+     "f3dgs_adam_attributes": ([ctypes.POINTER(_i)], _i)},
+    {"f3dgs_adam_chunk": CHUNK, "f3dgs_adam_max_tensors": MAX_TENSORS,
+     "f3dgs_adam_table_bytes": ctypes.sizeof(AdamTable)})}
+
+
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(cuda_raster.build()["adam"]))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.f3dgs_adam.argtypes = [ctypes.POINTER(AdamTable), i, p, p, p]
-            lib.f3dgs_adam.restype = i
-            for name, restype in (("chunk", i), ("max_tensors", i),
-                                  ("table_bytes", ctypes.c_size_t)):
-                fn = getattr(lib, f"f3dgs_adam_{name}")
-                fn.argtypes, fn.restype = [], restype
-            lib.f3dgs_adam_attributes.argtypes = [ctypes.POINTER(i)]
-            lib.f3dgs_adam_attributes.restype = i
-            lib.f3dgs_error_string.argtypes = [i]
-            lib.f3dgs_error_string.restype = ctypes.c_char_p
-            if (lib.f3dgs_adam_chunk(), lib.f3dgs_adam_max_tensors(),
-                    lib.f3dgs_adam_table_bytes()) != (
-                    CHUNK, MAX_TENSORS, ctypes.sizeof(AdamTable)):
-                raise RuntimeError("CHUNK, MAX_TENSORS or AdamTable "
-                                   "disagrees with adam.cu")
-            _lib = lib
-    return _lib
+    return load("adam", *LIBRARIES["adam"])
 
 
 def kernel_attributes() -> dict:
@@ -188,7 +175,7 @@ def kernel_attributes() -> dict:
     blocks an SM, of the kernel."""
     lib = _library()
     out = (ctypes.c_int * 3)()
-    cuda_raster._raise_on(lib, "adam", lib.f3dgs_adam_attributes(out))
+    raise_on(lib, "adam", lib.f3dgs_adam_attributes(out))
     return {"registers": out[0], "local_bytes": out[1],
             "blocks_per_sm": out[2]}
 
@@ -208,9 +195,9 @@ def adam_cuda_(params: dict, grads: dict, mu: dict, nu: dict,
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     entries = adam_entries(params, grads, mu, nu, lrs, dev)
-    cuda_raster._check("step", step, torch.int32, (), dev)
+    check("step", step, torch.int32, (), dev)
     if keep is not None:
-        cuda_raster._check("keep", keep, torch.bool, (), dev)
+        check("keep", keep, torch.bool, (), dev)
     plan = adam_plan([e.n for e in entries])
     if not plan.blocks:
         return
@@ -222,5 +209,5 @@ def adam_cuda_(params: dict, grads: dict, mu: dict, nu: dict,
                              step.data_ptr(),
                              None if keep is None else keep.data_ptr(),
                              stream)
-    cuda_raster._raise_on(lib, "adam", err)
+    raise_on(lib, "adam", err)
     ADAM_LAUNCHES += 1

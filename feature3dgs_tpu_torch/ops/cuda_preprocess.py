@@ -10,10 +10,9 @@ SH stack and ``ndc_offset`` from the cotangents of xy, depth, conic and
 rgb, recomputing the forward from the inputs. Both are bit-equal on the
 card to their plain versions: the forward to ``preprocess`` +
 ``rect_radius`` + ``tile_rect``, the backward to
-``core/projection.py:preprocess_backward``. The library is built with the
-raster kernels (``cuda_raster.build``: its own ``nvcc`` in parallel,
-hashed and cached in ``build/kernels/``) and called through ``ctypes`` on
-PyTorch's current stream.
+``core/projection.py:preprocess_backward``. The library is built and
+opened by ``ops.kernel_lib`` with the signatures of ``LIBRARIES`` and
+called through ``ctypes`` on PyTorch's current stream.
 
 ``preprocess_plan`` (threads, blocks, staged SH rows and their shared
 memory) is a pure function, and ``INV_THREE`` / ``INV_ALPHA_MIN`` are the
@@ -24,14 +23,14 @@ by, so the CPU tests reach them. ``PREPROCESS_LAUNCHES`` and
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from feature3dgs_tpu_torch.ops import cuda_raster
 from feature3dgs_tpu_torch.ops.composite import ALPHA_MIN
+from feature3dgs_tpu_torch.ops.kernel_lib import (check, check_aligned, load,
+                                                  raise_on)
 
 # Gaussians a block (THREADS in preprocess.cu)
 THREADS = 128
@@ -42,9 +41,6 @@ PREPROCESS_BWD_LAUNCHES = 0
 # reciprocal taken in double: rect_radius's radius / 3.0 and op / ALPHA_MIN
 INV_THREE = float(np.float32(1.0 / 3.0))
 INV_ALPHA_MIN = float(np.float32(1.0 / ALPHA_MIN))
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 class PreprocessPlan(NamedTuple):
@@ -72,32 +68,22 @@ def preprocess_plan(n: int, sh_degree: int, m_rows: int) -> PreprocessPlan:
                           4 * (THREADS * stride + 37))
 
 
+_p, _i, _f, _ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+# {library: (signatures, constants)}, as ops.kernel_lib.load takes them
+LIBRARIES = {"preprocess": (
+    {"f3dgs_preprocess_forward": (
+        [_i, _i, _i] + [_p] * 12 + [_i] * 6 + [_f] * 3 + [_p] * 10, _i),
+     "f3dgs_preprocess_backward": (
+         [_i, _i, _i] + [_p] * 10 + [_i, _i, _f]
+         + [_p, _ll, _ll, _p, _ll, _p, _ll, _ll, _p, _ll, _ll] + [_p] * 6, _i),
+     "f3dgs_preprocess_threads": ([], _i),
+     "f3dgs_preprocess_attributes": ([_i, _i, ctypes.POINTER(_i)], _i)},
+    {"f3dgs_preprocess_threads": THREADS})}
+
+
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(cuda_raster.build()["preprocess"]))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            f, ll = ctypes.c_float, ctypes.c_longlong
-            lib.f3dgs_preprocess_forward.argtypes = (
-                [i, i, i] + [p] * 12 + [i] * 6 + [f] * 3 + [p] * 10)
-            lib.f3dgs_preprocess_backward.argtypes = (
-                [i, i, i] + [p] * 10 + [i, i, f] + [p, ll, ll, p, ll, p, ll,
-                                                    ll, p, ll, ll] + [p] * 6)
-            for fn in (lib.f3dgs_preprocess_forward,
-                       lib.f3dgs_preprocess_backward):
-                fn.restype = i
-            lib.f3dgs_preprocess_threads.argtypes = []
-            lib.f3dgs_preprocess_threads.restype = i
-            lib.f3dgs_preprocess_attributes.argtypes = [i, i,
-                                                        ctypes.POINTER(i)]
-            lib.f3dgs_preprocess_attributes.restype = i
-            lib.f3dgs_error_string.argtypes = [i]
-            lib.f3dgs_error_string.restype = ctypes.c_char_p
-            if lib.f3dgs_preprocess_threads() != THREADS:
-                raise RuntimeError("THREADS disagrees with preprocess.cu")
-            _lib = lib
-    return _lib
+    return load("preprocess", *LIBRARIES["preprocess"])
 
 
 def kernel_attributes(backward: bool, sh_degree: int) -> dict:
@@ -106,7 +92,7 @@ def kernel_attributes(backward: bool, sh_degree: int) -> dict:
     lib = _library()
     out = (ctypes.c_int * 4)()
     name = "preprocess_backward" if backward else "preprocess_forward"
-    cuda_raster._raise_on(lib, name, lib.f3dgs_preprocess_attributes(
+    raise_on(lib, name, lib.f3dgs_preprocess_attributes(
         int(backward), sh_degree, out))
     return {"registers": out[0], "local_bytes": out[1],
             "blocks_per_sm": out[2], "shared_bytes": out[3]}
@@ -123,11 +109,10 @@ def _check_inputs(means3d, scales, rotations, shs, cam, sh_degree):
     m_rows = shs.shape[1] if shs.dim() == 3 else -1
     preprocess_plan(n, sh_degree, m_rows)
     f32 = torch.float32
-    check = cuda_raster._check
     check("means3d", means3d, f32, (n, 3), dev)
     check("scales", scales, f32, (n, 3), dev)
     check("rotations", rotations, f32, (n, 4), dev)
-    cuda_raster._check_aligned("rotations", rotations)
+    check_aligned("rotations", rotations)
     check("shs", shs, f32, (n, m_rows, 3), dev)
     check("view", cam.view, f32, (4, 4), dev)
     check("proj", cam.proj, f32, (4, 4), dev)
@@ -164,11 +149,11 @@ def preprocess_forward_cuda(means3d, scales, rotations, shs, opacities, cam,
     dev, n, m_rows = _check_inputs(means3d, scales, rotations, shs, cam,
                                    sh_degree)
     f32 = torch.float32
-    cuda_raster._check("opacities", opacities, f32, (n,), dev)
+    check("opacities", opacities, f32, (n,), dev)
     if ndc_offset is not None:
-        cuda_raster._check("ndc_offset", ndc_offset, f32, (n, 2), dev)
+        check("ndc_offset", ndc_offset, f32, (n, 2), dev)
     if active_mask is not None:
-        cuda_raster._check("active_mask", active_mask, torch.bool, (n,), dev)
+        check("active_mask", active_mask, torch.bool, (n,), dev)
     empty = lambda *shape, dtype=f32: torch.empty(shape, dtype=dtype,
                                                   device=dev)
     i32 = torch.int32
@@ -188,7 +173,7 @@ def preprocess_forward_cuda(means3d, scales, rotations, shs, opacities, cam,
             cam.width, cam.height, grid.grid_x, grid.grid_y, grid.tile_w,
             grid.tile_h, _f32(scale_modifier), INV_THREE, INV_ALPHA_MIN,
             *(x.data_ptr() for x in out), stream)
-    cuda_raster._raise_on(lib, "preprocess_forward", err)
+    raise_on(lib, "preprocess_forward", err)
     PREPROCESS_LAUNCHES += 1
     return out
 
@@ -223,7 +208,7 @@ def preprocess_backward_cuda(means3d, scales, rotations, shs, sh_degree: int,
     global PREPROCESS_BWD_LAUNCHES
     dev, n, m_rows = _check_inputs(means3d, scales, rotations, shs, cam,
                                    sh_degree)
-    cuda_raster._check("valid", valid, torch.bool, (n,), dev)
+    check("valid", valid, torch.bool, (n,), dev)
     cots = [_cotangent(name, g, n, cols, dev) for name, g, cols in (
         ("g_xy", g_xy, 2), ("g_depth", g_depth, 0), ("g_conic", g_conic, 3),
         ("g_rgb", g_rgb, 3))]
@@ -246,6 +231,6 @@ def preprocess_backward_cuda(means3d, scales, rotations, shs, sh_degree: int,
             *cots[0], *cots[1][:2], *cots[2], *cots[3], g_means.data_ptr(),
             g_scales.data_ptr(), g_rots.data_ptr(), g_shs.data_ptr(),
             None if g_ndc is None else g_ndc.data_ptr(), stream)
-    cuda_raster._raise_on(lib, "preprocess_backward", err)
+    raise_on(lib, "preprocess_backward", err)
     PREPROCESS_BWD_LAUNCHES += 1
     return g_means, g_scales, g_rots, g_shs, g_ndc

@@ -2,14 +2,10 @@
 ops/csrc/raster_backward.cu.
 
 The kernels replace ``feature3dgs_tpu/ops/pallas_raster.py:_fwd_kernel``
-and ``_bwd_kernel``. Each source is compiled with ``nvcc`` for ``sm_90a``
-into its own shared library with a plain C interface at first use (one
-``nvcc`` per source, run in parallel), into ``build/kernels/`` at the
-repository root, cached by the hash of the source, the headers it may
-include and the flags, and called through ``ctypes`` on PyTorch's current
-stream. ``build`` compiles ops/csrc/adam.cu beside them, the fused Adam
-that ops/cuda_adam.py loads and calls, and ops/csrc/preprocess.cu, the
-per-Gaussian preprocess that ops/cuda_preprocess.py loads and calls.
+and ``_bwd_kernel``. ``ops.kernel_lib`` builds each source into its own
+library with a plain C interface and opens it with the signatures of
+``LIBRARIES``; the wrappers call it through ``ctypes`` on PyTorch's current
+stream.
 
 The launch plans live here as pure functions, so the CPU tests reach them:
 ``forward_plan`` (channel tiles a block accumulates in registers, channel
@@ -31,12 +27,6 @@ alpha_matmul mode.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -44,6 +34,8 @@ import torch
 from feature3dgs_tpu_torch import tracing
 from feature3dgs_tpu_torch.ops.binning import TileGrid
 from feature3dgs_tpu_torch.ops.composite import BackwardRows, CompositeOutput
+from feature3dgs_tpu_torch.ops.kernel_lib import (check, check_aligned, load,
+                                                  raise_on)
 
 # list entries the kernels stage per step (CHUNK in the .cu sources)
 KERNEL_CHUNK = 32
@@ -52,18 +44,8 @@ FORWARD_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 FORWARD_MM_LAUNCHES = 0
 BACKWARD_MM_LAUNCHES = 0
-
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = {"raster_forward": _CSRC / "raster_forward.cu",
-            "raster_backward": _CSRC / "raster_backward.cu",
-            "adam": _CSRC / "adam.cu",
-            "preprocess": _CSRC / "preprocess.cu"}
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # the largest dynamic shared memory a Hopper block may use
 MAX_SMEM_BYTES = 232448
-
 
 
 class ForwardPlan(NamedTuple):
@@ -164,102 +146,31 @@ def backward_plan(p: int, f_dim: int, alpha_matmul: bool = False
                      f"(> {MAX_SMEM_BYTES})")
 
 
-_libs: dict = {}
-_lib_lock = threading.Lock()
-BUILD_LOG: str = ""
+_p, _i = ctypes.c_void_p, ctypes.c_int
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and Path(cand, "bin", "nvcc").exists():
-            return str(Path(cand, "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
+def _tables(name: str, entry: list, n_plan: int) -> tuple:
+    """(signatures, constants) of library ``name``: its launch ``entry``,
+    its chunk, its shared-memory formula and its attributes query, each
+    taking the ``n_plan`` ints of the launch plan."""
+    return ({f"f3dgs_{name}": (entry, _i),
+             f"f3dgs_{name}_chunk": ([], _i),
+             f"f3dgs_{name}_smem_bytes": ([_i] * n_plan, ctypes.c_size_t),
+             f"f3dgs_{name}_attributes": (
+                 [_i] * n_plan + [ctypes.POINTER(_i)], _i)},
+            {f"f3dgs_{name}_chunk": KERNEL_CHUNK})
 
 
-def _library_path(name: str) -> Path:
-    """Where the library of source ``name`` lands: its tag hashes the
-    source, every header of csrc/ and the flags, so editing a shared header
-    rebuilds every kernel."""
-    h = hashlib.sha256(_SOURCES[name].read_bytes())
-    for header in sorted(_CSRC.glob("*.cuh")):
-        h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
-
-
-def build() -> dict:
-    """Compile every kernel library not built yet, one ``nvcc`` per source,
-    all started together; returns {name: library path}. The ptxas reports
-    (registers, spills) land in ``BUILD_LOG`` and beside each library."""
-    global BUILD_LOG
-    paths = {name: _library_path(name) for name in _SOURCES}
-    todo = [name for name, lib_path in paths.items() if not lib_path.exists()]
-    procs = {}
-    if todo:
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in todo:
-        tmp = paths[name].with_name(f"{paths[name].stem}.{os.getpid()}.tmp.so")
-        procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {_SOURCES[name]}:\n{log}")
-            continue
-        paths[name].with_suffix(".log").write_text(log)
-        os.replace(tmp, paths[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    BUILD_LOG = "".join(
-        f"[{name}]\n" + (p.with_suffix(".log").read_text()
-                         if p.with_suffix(".log").exists() else "")
-        for name, p in paths.items())
-    return paths
+# {library: (signatures, constants)}, as ops.kernel_lib.load takes them
+LIBRARIES = {
+    "raster_forward": _tables("raster_forward",
+                              [_p] * 9 + [_i] * 12 + [_p] * 6, 4),
+    "raster_backward": _tables("raster_backward",
+                               [_p] * 15 + [_i] * 12 + [_p] * 3, 5)}
 
 
 def _library(name: str):
-    with _lib_lock:
-        if not _libs:
-            paths = build()
-            p, i = ctypes.c_void_p, ctypes.c_int
-            for lib_name, sig, n_plan in (
-                    ("raster_forward", [p] * 9 + [i] * 12 + [p] * 6, 4),
-                    ("raster_backward", [p] * 15 + [i] * 12 + [p] * 3, 5)):
-                lib = ctypes.CDLL(str(paths[lib_name]))
-                fn = getattr(lib, f"f3dgs_{lib_name}")
-                fn.argtypes, fn.restype = sig, i
-                chunk = getattr(lib, f"f3dgs_{lib_name}_chunk")
-                chunk.argtypes, chunk.restype = [], i
-                smem = getattr(lib, f"f3dgs_{lib_name}_smem_bytes")
-                smem.argtypes, smem.restype = [i] * n_plan, ctypes.c_size_t
-                attrs = getattr(lib, f"f3dgs_{lib_name}_attributes")
-                attrs.argtypes = [i] * n_plan + [ctypes.POINTER(i)]
-                attrs.restype = i
-                lib.f3dgs_error_string.argtypes = [i]
-                lib.f3dgs_error_string.restype = ctypes.c_char_p
-                if chunk() != KERNEL_CHUNK:
-                    raise RuntimeError(
-                        f"KERNEL_CHUNK disagrees with {lib_name}")
-                _libs[lib_name] = lib
-    return _libs[name]
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return load(name, *LIBRARIES[name])
 
 
 def check_tile_lists(gid_sorted: torch.Tensor, tile_starts: torch.Tensor,
@@ -317,15 +228,15 @@ def _check_splats(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             f"{tile_base}..{tile_base + n_tiles} at {n_per_camera} Gaussians "
             f"a camera and {grid.num_tiles} tiles a camera")
     f32, i32 = torch.float32, torch.int32
-    _check("xy", xy, f32, (rows, 2), dev)
-    _check("conic", conic, f32, (rows, 3), dev)
-    _check("opacity", opacity, f32, (rows,), dev)
-    _check("rgb", rgb, f32, (rows, 3), dev)
-    _check("depth", depth, f32, (rows,), dev)
-    _check("feat", feat, f32, (n, f_dim), dev)
-    _check("gid_sorted", gid_sorted, i32, (gid_sorted.shape[0],), dev)
-    _check("tile_starts", tile_starts, i32, (n_tiles,), dev)
-    _check("tile_counts", tile_counts, i32, (n_tiles,), dev)
+    check("xy", xy, f32, (rows, 2), dev)
+    check("conic", conic, f32, (rows, 3), dev)
+    check("opacity", opacity, f32, (rows,), dev)
+    check("rgb", rgb, f32, (rows, 3), dev)
+    check("depth", depth, f32, (rows,), dev)
+    check("feat", feat, f32, (n, f_dim), dev)
+    check("gid_sorted", gid_sorted, i32, (gid_sorted.shape[0],), dev)
+    check("tile_starts", tile_starts, i32, (n_tiles,), dev)
+    check("tile_counts", tile_counts, i32, (n_tiles,), dev)
     return dev, n, f_dim, n_tiles, grid.pixels_per_tile
 
 
@@ -335,11 +246,6 @@ def _check_smem(lib, name: str, planned: int, *shape):
     if smem != planned:
         raise RuntimeError(f"{name}: the plan reckons {planned} bytes of "
                            f"shared memory, the kernel {smem}")
-
-
-def _check_aligned(name: str, x: torch.Tensor):
-    if x.numel() and x.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def kernel_attributes(name: str, p: int, f_dim: int,
@@ -356,15 +262,9 @@ def kernel_attributes(name: str, p: int, f_dim: int,
         plan = backward_plan(p, f_dim, alpha_matmul)
         shape = (p, f_dim, int(alpha_matmul), plan.entries, plan.ring_rows)
     out = (ctypes.c_int * 3)()
-    _raise_on(lib, name, getattr(lib, f"f3dgs_{name}_attributes")(*shape, out))
+    raise_on(lib, name, getattr(lib, f"f3dgs_{name}_attributes")(*shape, out))
     return {"registers": out[0], "local_bytes": out[1],
             "blocks_per_sm": out[2], **plan._asdict()}
-
-
-def _raise_on(lib, name: str, err: int):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.f3dgs_error_string(err).decode())
 
 
 def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
@@ -392,7 +292,7 @@ def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
         xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
         tile_counts, grid, tile_base=tile_base, n_per_camera=n_per_camera)
     plan = forward_plan(p, f_dim, alpha_matmul)
-    _check_aligned("feat", feat)
+    check_aligned("feat", feat)
     lib = _library("raster_forward")
     _check_smem(lib, "raster_forward", plan.smem_bytes, plan.threads,
                 plan.channel_tiles, plan.halves, int(alpha_matmul))
@@ -419,7 +319,7 @@ def raster_forward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             color.data_ptr(),
             feature.data_ptr(), depth_out.data_ptr(), final_t.data_ptr(),
             n_contrib.data_ptr(), stream)
-    _raise_on(lib, "raster_forward", err)
+    raise_on(lib, "raster_forward", err)
     if n_tiles and alpha_matmul:
         FORWARD_MM_LAUNCHES += 1
     elif n_tiles:
@@ -462,14 +362,14 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
         xy, conic, opacity, rgb, depth, feat, gid_sorted, tile_starts,
         tile_counts, grid, tile_base=tile_base, n_per_camera=n_per_camera)
     f32 = torch.float32
-    _check("g_color", g_color, f32, (n_tiles, p, 3), dev)
-    _check("g_feat", g_feat, f32, (n_tiles, p, f_dim), dev)
+    check("g_color", g_color, f32, (n_tiles, p, 3), dev)
+    check("g_feat", g_feat, f32, (n_tiles, p, f_dim), dev)
     for name, x in (("g_depth", g_depth), ("g_final_t", g_final_t),
                     ("final_t", final_t)):
-        _check(name, x, f32, (n_tiles, p), dev)
-    _check("n_contrib", n_contrib, torch.int32, (n_tiles, p), dev)
+        check(name, x, f32, (n_tiles, p), dev)
+    check("n_contrib", n_contrib, torch.int32, (n_tiles, p), dev)
     plan = backward_plan(p, f_dim, alpha_matmul)
-    _check_aligned("g_feat", g_feat)
+    check_aligned("g_feat", g_feat)
     n_inst = gid_sorted.shape[0]
     # row and pixel offsets are 64-bit in the kernel; what stays int is the
     # list's length and the tile index
@@ -484,8 +384,8 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
     if out is None:
         out = BackwardRows(torch.empty((n_inst, 10), dtype=f32, device=dev),
                            torch.empty((n_inst, f_dim), dtype=f32, device=dev))
-    _check("out.geom", out.geom, f32, (n_inst, 10), dev)
-    _check("out.feature", out.feature, f32, (n_inst, f_dim), dev)
+    check("out.geom", out.geom, f32, (n_inst, 10), dev)
+    check("out.feature", out.feature, f32, (n_inst, f_dim), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.f3dgs_raster_backward(
@@ -499,7 +399,7 @@ def raster_backward_cuda(xy, conic, opacity, rgb, depth, feat, gid_sorted,
             int(feature_alpha_grad), int(alpha_matmul),
             plan.entries, plan.ring_rows, out.geom.data_ptr(),
             out.feature.data_ptr(), stream)
-    _raise_on(lib, "raster_backward", err)
+    raise_on(lib, "raster_backward", err)
     if n_tiles and alpha_matmul:
         BACKWARD_MM_LAUNCHES += 1
     elif n_tiles:

@@ -533,9 +533,9 @@ def rasterize_batch(
     ``cams`` is a stacked CameraView (tensor fields [B, ...]) or a list of
     CameraViews. ``composite_inputs_batch`` preprocesses each view and bins
     all B in one sort into a camera-major list over B * T tiles; one
-    forward-kernel launch (``n_per_camera`` = N) composites them for CUDA
-    tensors, the plain version for CPU tensors, chosen by ``_use_kernels``
-    as ``rasterize`` chooses. The splat arrays are stacked to [B*N, ...];
+    ``composite`` call (``n_per_camera`` = N) composites them, as
+    ``rasterize`` composites its view: one forward-kernel launch for CUDA
+    tensors, the plain version for CPU tensors. The splat arrays are stacked to [B*N, ...];
     the feature table [N,F] is passed once and never copied per camera. The
     kernel addresses its outputs with 64-bit offsets, so a batch is never
     split into several launches.
@@ -558,15 +558,8 @@ def rasterize_batch(
             rotations=rotations, shs=shs, sh_degree=sh_degree,
             colors_precomp=colors_precomp, scale_modifier=scale_modifier,
             active_mask=active_mask, config=config)
-        n_cams, n, grid = ci.valid.shape[0], means3d.shape[0], ci.grid
-        with tracing.span("raster.forward"):
-            if _use_kernels(config, means3d):
-                out = raster_forward_cuda(*ci.args, n_per_camera=n,
-                                          alpha_matmul=config.alpha_matmul)
-            else:
-                out = composite_plain(*ci.args, chunk=config.chunk,
-                                      n_per_camera=n,
-                                      alpha_matmul=config.alpha_matmul)
+        n_cams, grid = ci.valid.shape[0], ci.grid
+        out = composite(ci.args, config, n_per_camera=means3d.shape[0])
         if bg is None:
             bg = torch.zeros((3,), dtype=out.color.dtype,
                              device=out.color.device)

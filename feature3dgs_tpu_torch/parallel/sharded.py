@@ -53,7 +53,7 @@ import torch
 import torch.distributed as dist
 
 from feature3dgs_tpu_torch.core.projection import CameraView
-from feature3dgs_tpu_torch.model import density, optim
+from feature3dgs_tpu_torch.model import optim
 from feature3dgs_tpu_torch.model import gaussians as G
 from feature3dgs_tpu_torch.model.decoder import apply_decoder
 from feature3dgs_tpu_torch.ops.binning import (expand_instances,
@@ -63,6 +63,8 @@ from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig, _prep_view,
                                                  composite_inputs_batch,
                                                  tiles_to_image)
 from feature3dgs_tpu_torch.train import losses as L
+from feature3dgs_tpu_torch.train.trainer import (TrainState, step_grads,
+                                                 step_leaves, step_update)
 
 
 class Mesh:
@@ -434,14 +436,8 @@ def sharded_train_step(ts, cams, gt_images, gt_features, bg, iteration, *,
             "row-sharded over the mesh")
     b_loc = b // n_data
     mine = range(mesh.data_index * b_loc, (mesh.data_index + 1) * b_loc)
-    params, gstate = ts.params, ts.gstate
-    leaves = G.GaussianParams(**{k: getattr(params, k).detach().requires_grad_()
-                                 for k in G.GaussianParams.FIELDS})
-    ndc_offset = torch.zeros((params.capacity, 2), dtype=torch.float32,
-                             device=params.xyz.device, requires_grad=True)
-    dec = None
-    if speedup:
-        dec = {k: v.detach().requires_grad_() for k, v in ts.decoder.items()}
+    gstate = ts.gstate
+    leaves, ndc_offset, dec = step_leaves(ts, speedup)
 
     if shard_instances:
         total, sums, aux = _exchange_losses(
@@ -466,12 +462,7 @@ def sharded_train_step(ts, cams, gt_images, gt_features, bg, iteration, *,
     # back to exactly one share
     norm = 1.0 / (b * n_tile)
     local = total * norm
-    inputs = [getattr(leaves, k) for k in G.GaussianParams.FIELDS] + [ndc_offset]
-    if speedup:
-        inputs += [dec["w"], dec["b"]]
-    grads = torch.autograd.grad(local, inputs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(inputs, grads)]
+    grads = step_grads(local, leaves, ndc_offset, dec)
     scalars = torch.cat([local.detach()[None], torch.stack(sums).sum(0) * norm])
     return _apply_step_tail(ts, grads, scalars, aux, iteration, mesh=mesh,
                             ocfg=ocfg, speedup=speedup,
@@ -676,37 +667,28 @@ def _apply_step_tail(ts, grads: list, scalars, aux: dict, iteration, *,
                      mesh: Mesh, ocfg, speedup: bool,
                      shard_gaussians: bool = False) -> dict:
     """The step's tail: world sums of the gradients and of [loss, l1,
-    l1_feature, psnr], the densification statistics' maxima, one Adam
-    update over the iteration span, the statistics fold and the metrics;
-    every update gated on a finite loss. Under ``shard_gaussians`` the
-    gradients of the rows came back summed from the gather's
-    reduce-scatter, and the statistics are cut to this rank's rows."""
-    params, gstate = ts.params, ts.gstate
+    l1_feature, psnr] and the densification statistics' maxima, then
+    ``step_update`` over the iteration span gated on a finite loss, and
+    the metrics. Under ``shard_gaussians`` the gradients of the rows came
+    back summed from the gather's reduce-scatter, and the statistics are
+    cut to this rank's rows."""
     n_fields = len(G.GaussianParams.FIELDS)
     _world_reduce_((grads[n_fields + 1:] if shard_gaussians else grads)
                    + [scalars], mesh)
     vis_rad = torch.stack([aux["visibility"].to(torch.float32), aux["radii"]])
     if not aux.get("rows_local"):
         _world_reduce_([vis_rad], mesh, dist.ReduceOp.MAX)
-        n_loc = params.capacity
+        n_loc = ts.params.capacity
         vis_rad = vis_rad[:, mesh.rank * n_loc:(mesh.rank + 1) * n_loc] \
             if shard_gaussians else vis_rad
     counts = torch.stack([aux["total_instances"].long(),
                           aux["max_tile_count"].long()])
     _world_reduce_([counts], mesh, dist.ReduceOp.MAX)
-    g_params = G.GaussianParams(*grads[:n_fields])
     loss = scalars[0]
     finite = torch.isfinite(loss)
-    optim.adam_update(params, g_params, ts.adam,
-                      optim.group_lrs(ocfg.lr, iteration,
-                                      gstate.spatial_lr_scale),
-                      keep=finite)
-    if speedup:
-        optim.tensor_adam_update(ts.decoder, dict(w=grads[-2], b=grads[-1]),
-                                 ts.decoder_adam, lr=1e-4, keep=finite)
-    density.add_densification_stats(gstate, grads[n_fields], vis_rad[0] > 0,
-                                    vis_rad[1], keep=finite)
-    active = gstate.alive.sum()
+    step_update(ts, grads, vis_rad[0] > 0, vis_rad[1], finite, iteration,
+                ocfg=ocfg, speedup=speedup)
+    active = ts.gstate.alive.sum()
     if shard_gaussians:
         active = active.reshape(1)
         _world_reduce_([active], mesh)
@@ -724,7 +706,6 @@ _STATE_ROWS = ("alive", "max_radii2d", "xyz_gradient_accum", "denom")
 def _map_rows(ts, fn):
     """A TrainState whose row-leading tensors (parameters, Adam moments,
     the state's rows) are ``fn`` of ``ts``'s; the rest is shared."""
-    from feature3dgs_tpu_torch.train.trainer import TrainState
     rows = lambda p: G.GaussianParams(**{k: fn(getattr(p, k))
                                          for k in G.GaussianParams.FIELDS})
     adam = optim.AdamState(rows(ts.adam.mu), rows(ts.adam.nu), ts.adam.step)

@@ -28,8 +28,7 @@ from feature3dgs_tpu_torch.model import gaussians as G
 from feature3dgs_tpu_torch.parallel.sharded import (Mesh, gather_state,
                                                     shard_state,
                                                     sharded_train_step)
-from feature3dgs_tpu_torch.train.trainer import (Trainer, densify_step,
-                                                 reset_opacity_step)
+from feature3dgs_tpu_torch.train.trainer import Trainer
 
 
 class DistributedTrainer(Trainer):
@@ -155,33 +154,6 @@ class DistributedTrainer(Trainer):
             return host_metrics
         self._pending_maintenance = (self.iteration, metrics)
         return metrics
-
-    def _dispatch_maintenance(self, it: int, metrics) -> None:
-        """Densify / prune / opacity reset after the batch that ended at
-        ``it``: each fires when its interval boundary falls inside the
-        batch's span (the reference checks ``it % interval == 0`` per
-        camera-iteration). Under shard_gaussians they run on the whole
-        state, gathered for the round."""
-        o = self.ocfg
-        first = it - self.batch + 1
-        if first >= o.densify_until_iter:
-            return
-        hits = lambda interval: any(i % interval == 0
-                                    for i in range(first, it + 1))
-        densify = it > o.densify_from_iter and hits(o.densification_interval)
-        reset = hits(o.opacity_reset_interval) or (
-            self.white_background and first <= o.densify_from_iter <= it)
-        if not (densify or reset):
-            return
-        with self._whole():
-            if densify:
-                noise, extent = self._densify_inputs()
-                self.ts, report = densify_step(
-                    self.ts, noise, extent, ocfg=o,
-                    use_screen_size_prune=it > o.opacity_reset_interval)
-                self._pending_reports.append((it, report, metrics))
-            if reset:
-                self.ts = reset_opacity_step(self.ts)
 
     def train(self, iterations: int | None = None, log_every: int = 50,
               callback=None) -> list:

@@ -22,6 +22,7 @@ read at the next sync point.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import random
 from typing import TYPE_CHECKING
@@ -40,6 +41,10 @@ from feature3dgs_tpu_torch.train import losses as L
 
 if TYPE_CHECKING:   # data.cameras imports convert, which imports this module
     from feature3dgs_tpu_torch.data.dataset import SceneData
+
+
+# the speed-up decoder's Adam learning rate (the original's fixed 1e-4)
+DECODER_LR = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +85,59 @@ class TrainState:
                                  else optim.init_tensor_adam(decoder, device)))
 
 
+def step_leaves(ts: TrainState, speedup: bool):
+    """What a step differentiates: (the parameters as leaves that alias the
+    stored tensors, which are then updated in place; a zero NDC offset
+    [capacity, 2], whose gradient feeds the densification statistics; the
+    decoder's tensors as leaves, or None without ``speedup``)."""
+    params = ts.params
+    leaves = G.GaussianParams(**{k: getattr(params, k).detach().requires_grad_()
+                                 for k in G.GaussianParams.FIELDS})
+    ndc_offset = torch.zeros((params.capacity, 2), dtype=torch.float32,
+                             device=params.xyz.device, requires_grad=True)
+    dec = None
+    if speedup:
+        dec = {k: v.detach().requires_grad_() for k, v in ts.decoder.items()}
+    return leaves, ndc_offset, dec
+
+
+def step_grads(loss: torch.Tensor, leaves: G.GaussianParams, ndc_offset,
+               dec: dict | None) -> list:
+    """The gradients of ``loss`` with respect to ``step_leaves``' leaves,
+    flat: the parameter fields in ``GaussianParams.FIELDS`` order, the NDC
+    offset, then the decoder's w and b; zeros where the loss does not reach
+    a leaf."""
+    inputs = [getattr(leaves, k) for k in G.GaussianParams.FIELDS] + [ndc_offset]
+    if dec is not None:
+        inputs += [dec["w"], dec["b"]]
+    with tracing.span("train.backward"):
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for x, g in zip(inputs, grads)]
+
+
+@torch.no_grad()
+def step_update(ts: TrainState, grads: list, visibility, radii, finite,
+                iteration, *, ocfg: OptimizationConfig, speedup: bool) -> None:
+    """The step's update of ``ts`` in place from ``step_grads``' list: Adam
+    over the parameters at ``group_lrs(iteration)`` (an iteration, or the
+    span of a batch), the decoder's Adam, and the densification statistics
+    from the NDC gradient, ``visibility`` and ``radii``; where the 0-d bool
+    ``finite`` is False nothing is written."""
+    n_fields = len(G.GaussianParams.FIELDS)
+    with tracing.span("optim.adam"):
+        optim.adam_update(ts.params, G.GaussianParams(*grads[:n_fields]),
+                          ts.adam, optim.group_lrs(ocfg.lr, iteration,
+                                                   ts.gstate.spatial_lr_scale),
+                          keep=finite)
+        if speedup:
+            optim.tensor_adam_update(
+                ts.decoder, dict(w=grads[-2], b=grads[-1]), ts.decoder_adam,
+                lr=DECODER_LR, keep=finite)
+    density.add_densification_stats(ts.gstate, grads[n_fields], visibility,
+                                    radii, keep=finite)
+
+
 def train_step(ts: TrainState, cam: CameraView, gt_image: torch.Tensor,
                gt_feature: torch.Tensor, bg: torch.Tensor, iteration: int, *,
                ocfg: OptimizationConfig, rcfg: RasterConfig, speedup: bool
@@ -89,18 +147,8 @@ def train_step(ts: TrainState, cam: CameraView, gt_image: torch.Tensor,
     learning rate). Updates ``ts`` in place and returns a dict of scalar
     tensors (no host sync): finite, loss, l1, l1_feature, num_instances,
     max_tile_count, num_active, psnr."""
-    params, gstate = ts.params, ts.gstate
-    # leaves that alias the stored tensors: autograd differentiates these,
-    # and the stored tensors are then updated in place
-    leaves = G.GaussianParams(**{k: getattr(params, k).detach().requires_grad_()
-                                 for k in G.GaussianParams.FIELDS})
-    ndc_offset = torch.zeros((params.capacity, 2), dtype=torch.float32,
-                             device=params.xyz.device, requires_grad=True)
-    dec = None
-    if speedup:
-        dec = {k: v.detach().requires_grad_() for k, v in ts.decoder.items()}
-
-    out = renderer.render(leaves, gstate, cam, bg=bg, config=rcfg,
+    leaves, ndc_offset, dec = step_leaves(ts, speedup)
+    out = renderer.render(leaves, ts.gstate, cam, bg=bg, config=rcfg,
                           ndc_offset=ndc_offset)
     rgb, ll1 = L.rgb_loss(out.color, gt_image, ocfg.lambda_dssim)
     with tracing.span("loss.resize"):
@@ -112,37 +160,18 @@ def train_step(ts: TrainState, cam: CameraView, gt_image: torch.Tensor,
     ll1_feat = L.l1_loss(fmap, gt_feature.to(torch.float32))
     loss = rgb + ocfg.feature_loss_weight * ll1_feat
 
-    inputs = [getattr(leaves, k) for k in G.GaussianParams.FIELDS] + [ndc_offset]
-    if speedup:
-        inputs += [dec["w"], dec["b"]]
-    with tracing.span("train.backward"):
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(inputs, grads)]
-    n_fields = len(G.GaussianParams.FIELDS)
-    g_params = G.GaussianParams(*grads[:n_fields])
-    g_offset = grads[n_fields]
-
+    grads = step_grads(loss, leaves, ndc_offset, dec)
     with torch.no_grad():
         finite = torch.isfinite(loss)
-        with tracing.span("optim.adam"):
-            optim.adam_update(params, g_params, ts.adam,
-                              optim.group_lrs(ocfg.lr, iteration,
-                                              gstate.spatial_lr_scale),
-                              keep=finite)
-            if speedup:
-                optim.tensor_adam_update(
-                    ts.decoder, dict(w=grads[-2], b=grads[-1]),
-                    ts.decoder_adam, lr=1e-4, keep=finite)
-        density.add_densification_stats(gstate, g_offset, out.visibility,
-                                        out.radii, keep=finite)
+        step_update(ts, grads, out.visibility, out.radii, finite, iteration,
+                    ocfg=ocfg, speedup=speedup)
         metrics = {
             "finite": finite,
             "loss": loss.detach(), "l1": ll1.detach(),
             "l1_feature": ll1_feat.detach(),
             "num_instances": out.total_instances,
             "max_tile_count": out.max_tile_count,
-            "num_active": gstate.alive.sum(),
+            "num_active": ts.gstate.alive.sum(),
             "psnr": L.psnr(torch.clamp(out.color, 0, 1),
                            torch.clamp(gt_image, 0, 1)),
         }
@@ -176,11 +205,13 @@ def _host_values(tensors: list) -> list:
 class Trainer:
     """The host loop (the original train.py ``training()``). Runs on
     ``default_device(device)``. ``parallel.trainer.DistributedTrainer``
-    subclasses it: ``step``, ``_dispatch_maintenance`` and ``train`` are
-    what a batch of cameras a step changes, ``_sync_tag`` names the loop in
-    its messages."""
+    subclasses it: ``step`` and ``train`` are what a batch of cameras a
+    step changes, ``batch`` counts the iterations a step spans, ``_whole``
+    gathers a row-sharded state for maintenance, ``_sync_tag`` names the
+    loop in its messages."""
 
     _sync_tag = "trainer"
+    batch = 1
 
     def __init__(self, scene: "SceneData", *, ocfg: OptimizationConfig = None,
                  rcfg: RasterConfig = None, max_sh_degree: int = 3,
@@ -360,17 +391,35 @@ class Trainer:
         if drain:
             self._drain_reports()
 
+    def _whole(self):
+        """A context in which ``ts`` is the whole state (it always is here;
+        the mesh trainer gathers its row shards)."""
+        return contextlib.nullcontext()
+
     def _dispatch_maintenance(self, it: int, metrics: dict) -> None:
+        """Densify / prune / opacity reset after the step that ended at
+        ``it``: each fires when its interval boundary falls inside the
+        step's span of ``batch`` iterations (the reference checks ``it %
+        interval == 0`` per camera-iteration), on the whole state."""
         o = self.ocfg
-        if it < o.densify_until_iter:
-            if it > o.densify_from_iter and it % o.densification_interval == 0:
+        first = it - self.batch + 1
+        if first >= o.densify_until_iter:
+            return
+        hits = lambda interval: any(i % interval == 0
+                                    for i in range(first, it + 1))
+        densify = it > o.densify_from_iter and hits(o.densification_interval)
+        reset = hits(o.opacity_reset_interval) or (
+            self.white_background and first <= o.densify_from_iter <= it)
+        if not (densify or reset):
+            return
+        with self._whole():
+            if densify:
                 noise, extent = self._densify_inputs()
                 self.ts, report = densify_step(
                     self.ts, noise, extent, ocfg=o,
                     use_screen_size_prune=it > o.opacity_reset_interval)
                 self._pending_reports.append((it, report, metrics))
-            if it % o.opacity_reset_interval == 0 or (
-                    self.white_background and it == o.densify_from_iter):
+            if reset:
                 self.ts = reset_opacity_step(self.ts)
 
     def _densify_inputs(self):

@@ -325,10 +325,10 @@ def test_tile_base_on_long_lists(dev, f_dim, tile_w):
 def test_plans_agree_with_the_libraries(dev, name, p, f_dim):
     """The Python launch plan's shared memory is the library's own, and the
     instantiation it picks fits the card."""
-    from feature3dgs_tpu_torch.ops import cuda_raster
+    from feature3dgs_tpu_torch.ops import cuda_raster, kernel_lib
     for mm in (False, True):
         attrs = cuda_raster.kernel_attributes(name, p, f_dim, mm)
-        lib = cuda_raster._library(name)
+        lib = kernel_lib.load(name, *cuda_raster.LIBRARIES[name])
         if name == "raster_forward":
             shape = (attrs["threads"], attrs["channel_tiles"],
                      attrs["halves"], int(mm))

@@ -149,14 +149,14 @@ def test_distributed_trainer_schedule_over_spans():
     def reset(ts):
         events.append(("reset", tr.iteration))
         return real_reset(ts)
-    import feature3dgs_tpu_torch.parallel.trainer as ptr
-    ptr.reset_opacity_step, saved = reset, ptr.reset_opacity_step
+    # the maintenance (Trainer._dispatch_maintenance) looks it up there
+    ptrainer.reset_opacity_step = reset
     try:
         for _ in range(4):                # spans 6-8, 9-11, 12-14, 15-17
             tr.step(sync=False)
         tr.flush_maintenance(drain=True)
     finally:
-        ptr.reset_opacity_step = saved
+        ptrainer.reset_opacity_step = real_reset
     # span 9-11 holds 10 (a round), 12-14 holds 14 (a reset); each runs
     # when the next step starts
     assert events == [("densify", 11), ("reset", 14)]

@@ -140,6 +140,17 @@ Phases, one line each; any failure raises and exits non-zero:
                the plain versions' ms, and the autograd path's (the plain
                ops' forward and autograd backward, what they replace); both
                kernels' registers, local bytes and blocks an SM.
+  resize       the tile-layout resize kernels (ops/csrc/resize.cu) at the
+               training cells' shape, 1216x800 on 32x16 tiles to 608x400,
+               F = 128 and 512: the forward bit-equal to tiles_to_image +
+               F.interpolate (elements whose bits differ, the largest gap
+               in ulp), the backward against that path's autograd gradient
+               (max-normalised gap), two runs of each bit-equal; each
+               kernel's ms (CUDA events, mean of 20) beside its bytes bound,
+               the plain path's forward and forward + backward ms, and
+               F.interpolate's alone on a contiguous NCHW map (the library
+               yardstick); both kernels' registers, local bytes and blocks
+               an SM.
   parity       the parity CLI's scene (1,000 Gaussians, 208x160, SH degree
                3) at F = 8 and at F = 128: the CUDA route (one forward and
                one backward launch) in the exact and alpha_matmul modes
@@ -172,10 +183,11 @@ Phases, one line each; any failure raises and exits non-zero:
                across iteration 1000 (the SH-degree bump). Every loss
                finite; clones, splits and prunes non-zero; a Gaussian-
                capacity growth and an instance-capacity growth; one forward
-               and one backward launch per step; a checkpoint saved mid-run
+               and one backward launch per step of each of the compositing,
+               preprocess and resize kernels; a checkpoint saved mid-run
                resumes in a fresh Trainer to the same next step (loss 1e-5
-               relative, Adam mu 1e-4 max-normalised: F.interpolate's
-               backward sums with atomics); the saved PLY serves finite.
+               relative, Adam mu 1e-4 max-normalised); the saved PLY serves
+               finite.
                Step times (plain steps, steps that carry maintenance), the
                round's own ms, host syncs per step, peak memory. Then 10
                steps with alpha_matmul=True from a fresh Trainer.
@@ -247,7 +259,8 @@ Then the card's name and power limit, a {"kernels": [...]} line (the two
 forward entries also with batch8_ms and batch8_bound_ms, the two backward
 entries with batch4_ms and batch4_bound_ms, all four with f256_ms,
 f256_bound_ms, f512_ms and f512_bound_ms from kernel_wide; a fifth entry,
-adam, with adam's times and bounds at F = 128 and 512) and, last,
+adam, with adam's times and bounds at F = 128 and 512; then the two
+preprocess and the two resize kernels) and, last,
 {"ok": true, "device": {...}}. With --profile DIR, torch.profiler tables of
 two served views, of the 8 views sequential and in a batch of 8 (with the
 device-busy ms and idle share of each) and of two training steps are
@@ -2201,10 +2214,113 @@ def phase_preprocess(dev):
              "bound_ms": bwd_bound})
 
 
+def resize_touched(n_in: int, n_out: int) -> int:
+    """Source rows (or columns) an align_corners resize of one axis reads,
+    from ATen's float32 taps."""
+    if n_out == 1:
+        scale = np.float32(0)
+    else:
+        scale = np.float32(n_in - 1) / np.float32(n_out - 1)
+    lo = (scale * np.arange(n_out, dtype=np.float32)).astype(np.int64)
+    return len(set(lo) | set(np.minimum(lo + 1, n_in - 1)))
+
+
+def phase_resize(dev):
+    """The tile-layout resize kernels at the training cells' shape: checks
+    against the plain path, then times beside the bytes bound. Returns the
+    two kernels' rows for the kernels line, less their launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from feature3dgs_tpu_torch.ops import cuda_resize as cr
+    from feature3dgs_tpu_torch.ops.binning import TileGrid
+    from feature3dgs_tpu_torch.ops.rasterize import tiles_to_image
+    from feature3dgs_tpu_torch.train.losses import \
+        resize_bilinear_align_corners
+    grid = TileGrid(width=WIDTH, height=HEIGHT, tile_w=32, tile_h=16)
+    out_h, out_w = HEIGHT // 2, WIDTH // 2
+    n_pix = grid.num_tiles * grid.pixels_per_tile
+    read_pix = (resize_touched(HEIGHT, out_h) * resize_touched(WIDTH, out_w))
+    rows = ({}, {})
+
+    def plain(x):
+        return resize_bilinear_align_corners(tiles_to_image(x, grid), out_h,
+                                             out_w)
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    for f_dim in (128, 512):
+        gen = torch.Generator(device=dev).manual_seed(f_dim)
+        tiles = torch.randn((grid.num_tiles, grid.pixels_per_tile, f_dim),
+                            generator=gen, device=dev)
+        g = torch.randn((out_h, out_w, f_dim), generator=gen, device=dev)
+        fwd = lambda: cr.resize_forward_cuda(tiles, grid, out_h, out_w)
+        bwd = lambda: cr.resize_backward_cuda(g, grid, out_h, out_w)
+        got, got2 = fwd(), fwd()
+        g_got, g_got2 = bwd(), bwd()
+        x = tiles.clone().requires_grad_()
+        ref = plain(x)
+        g_ref, = torch.autograd.grad(ref, x, g)
+        ref = ref.detach()
+        differing = int((got.view(torch.int32) != ref.view(torch.int32))
+                        .sum())
+        max_ulp = int((ordered(got) - ordered(ref)).abs().max())
+        bwd_gap = float((g_got - g_ref).abs().max() / g_ref.abs().max())
+        repeat = (torch.equal(got.view(torch.int32), got2.view(torch.int32))
+                  and torch.equal(g_got.view(torch.int32),
+                                  g_got2.view(torch.int32)))
+        if differing or not bwd_gap <= 1e-6 or not repeat:
+            raise AssertionError(f"resize F={f_dim}: forward {differing} "
+                                 f"elements off, {max_ulp} ulp at most; "
+                                 f"backward gap {bwd_gap}; runs bit-equal "
+                                 f"{repeat}")
+        del got2, g_got2, x, g_ref
+        fwd_ms, bwd_ms = cuda_ms(fwd, 20), cuda_ms(bwd, 20)
+
+        def plain_fwd_bwd():
+            xx = tiles.clone().requires_grad_()
+            torch.autograd.grad(plain(xx), xx, g)
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: plain(tiles), 5)
+        plain_fb_ms = cuda_ms(plain_fwd_bwd, 5)
+        nchw = tiles_to_image(tiles, grid).permute(2, 0, 1)[None].contiguous()
+        library_ms = cuda_ms(lambda: F.interpolate(
+            nchw, size=(out_h, out_w), mode="bilinear", align_corners=True),
+            20)
+        del nchw
+        fwd_bytes = 4 * f_dim * (read_pix + out_h * out_w)
+        bwd_bytes = 4 * f_dim * (out_h * out_w + n_pix)
+        fwd_bound, bwd_bound = (bytes_bound_ms(fwd_bytes),
+                                bytes_bound_ms(bwd_bytes))
+        say("resize", F=f_dim, forward_bits_differing=differing,
+            forward_max_ulp=max_ulp, backward_max_gap=f"{bwd_gap:.3e}",
+            runs_bit_equal=repeat, forward_ms=f"{fwd_ms:.4f}",
+            forward_bound_ms=f"{fwd_bound:.4f}",
+            forward_roofline=f"{fwd_bound / fwd_ms:.3f}",
+            backward_ms=f"{bwd_ms:.4f}", backward_bound_ms=f"{bwd_bound:.4f}",
+            backward_roofline=f"{bwd_bound / bwd_ms:.3f}",
+            plain_forward_ms=f"{plain_ms:.4f}",
+            plain_forward_backward_ms=f"{plain_fb_ms:.4f}",
+            library_ms=f"{library_ms:.4f}",
+            forward_attributes=json.dumps(cr.kernel_attributes(False)),
+            backward_attributes=json.dumps(cr.kernel_attributes(True)))
+        rows[0].update({f"f{f_dim}_ms": fwd_ms, f"f{f_dim}_bound_ms": fwd_bound,
+                        f"f{f_dim}_plain_ms": plain_ms,
+                        f"f{f_dim}_library_ms": library_ms})
+        rows[1].update({f"f{f_dim}_ms": bwd_ms, f"f{f_dim}_bound_ms": bwd_bound,
+                        f"f{f_dim}_plain_forward_backward_ms": plain_fb_ms})
+        del tiles, g, got, g_got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 # the compressed schedule of the train_loop phase
 LOOP_STEPS, LOOP_DENSIFY_FROM, LOOP_DENSIFY_EVERY, LOOP_RESET_EVERY = 50, 5, 10, 20
 LOOP_SYNC_EVERY = 12
 PREP_COUNTERS = ("PREPROCESS_LAUNCHES", "PREPROCESS_BWD_LAUNCHES")
+RESIZE_COUNTERS = ("RESIZE_LAUNCHES", "RESIZE_BWD_LAUNCHES")
 LOOP_EXTENT = 5.5   # 1.1 x the cameras' distance from the scene's centre
 
 
@@ -2258,7 +2374,7 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
     import torch
     from feature3dgs_tpu_torch.model import gaussians as G
     from feature3dgs_tpu_torch.ops import (cuda_adam, cuda_preprocess,
-                                           cuda_raster)
+                                           cuda_raster, cuda_resize)
     names = (("FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES") if mm
              else ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES"))
     records = []
@@ -2268,6 +2384,7 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
         before = [getattr(cuda_raster, n) for n in names]
         adam_before = cuda_adam.ADAM_LAUNCHES
         prep_before = [getattr(cuda_preprocess, n) for n in PREP_COUNTERS]
+        resize_before = [getattr(cuda_resize, n) for n in RESIZE_COUNTERS]
         counting = it in count_syncs
 
         def watched(fn, *a, **kw):
@@ -2299,6 +2416,9 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
                "prep_launches": tuple(getattr(cuda_preprocess, n) - b
                                       for n, b in zip(PREP_COUNTERS,
                                                       prep_before)),
+               "resize_launches": tuple(getattr(cuda_resize, n) - b
+                                        for n, b in zip(RESIZE_COUNTERS,
+                                                        resize_before)),
                "syncs": None}
         if counting:
             sites = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
@@ -2327,7 +2447,7 @@ def phase_train_loop(dev, scene, scene_s):
     import torch
     from feature3dgs_tpu_torch.model.ply_io import load_gaussians_ply
     from feature3dgs_tpu_torch.ops import (cuda_adam, cuda_preprocess,
-                                           cuda_raster)
+                                           cuda_raster, cuda_resize)
     from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
     from feature3dgs_tpu_torch.render import renderer
     from feature3dgs_tpu_torch.train import checkpoints as ckpt
@@ -2351,6 +2471,8 @@ def phase_train_loop(dev, scene, scene_s):
     cuda_adam.ADAM_LAUNCHES = 0
     for name in PREP_COUNTERS:
         setattr(cuda_preprocess, name, 0)
+    for name in RESIZE_COUNTERS:
+        setattr(cuda_resize, name, 0)
     t0 = time.perf_counter()
     trainer = make(RasterConfig())
     init_s = time.perf_counter() - t0
@@ -2433,15 +2555,16 @@ def phase_train_loop(dev, scene, scene_s):
         raise AssertionError(f"train_loop: non-finite loss in {vals}")
     # one fused Adam launch a step for the Gaussians, one more for a decoder
     adam_per_step = 2 if trainer.speedup else 1
-    # and one preprocess launch each way: the view's forward, the step's
-    # backward
-    bad = [(r["it"], r["launches"], r["adam_launches"], r["prep_launches"])
+    # and one preprocess and one resize launch each way: the view's
+    # forward, the step's backward
+    bad = [(r["it"], r["launches"], r["adam_launches"], r["prep_launches"],
+            r["resize_launches"])
            for r in records
            if r["launches"] != (1, 1) or r["adam_launches"] != adam_per_step
-           or r["prep_launches"] != (1, 1)]
+           or r["prep_launches"] != (1, 1) or r["resize_launches"] != (1, 1)]
     if bad:
-        raise AssertionError(f"train_loop: raster, Adam and preprocess "
-                             f"launches per step {bad}")
+        raise AssertionError(f"train_loop: raster, Adam, preprocess and "
+                             f"resize launches per step {bad}")
     log = trainer.densify_log
     totals = {k: sum(r[k] for r in log)
               for k in ("num_cloned", "num_split", "num_pruned")}
@@ -2496,6 +2619,7 @@ def phase_train_loop(dev, scene, scene_s):
     launches = (cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)
     adam_launches = cuda_adam.ADAM_LAUNCHES
     prep_launches = [getattr(cuda_preprocess, n) for n in PREP_COUNTERS]
+    resize_launches = [getattr(cuda_resize, n) for n in RESIZE_COUNTERS]
 
     main_run = [r for r in records if 3 <= r["it"] <= LOOP_STEPS
                 and not r["sync"]]
@@ -2532,6 +2656,8 @@ def phase_train_loop(dev, scene, scene_s):
         adam_launches=adam_launches, adam_launches_per_step=adam_per_step,
         preprocess_launches=prep_launches[0],
         preprocess_backward_launches=prep_launches[1],
+        resize_launches=resize_launches[0],
+        resize_backward_launches=resize_launches[1],
         loss_first=f"{vals[0]:.6f}", loss_last=f"{vals[-1]:.6f}")
     say("train_loop_sync_sites", per_step=json.dumps(sites).replace(" ", ""))
     say("train_loop_rounds", log=json.dumps(log).replace(" ", ""))
@@ -2543,10 +2669,12 @@ def phase_train_loop(dev, scene, scene_s):
     alpha = make(RasterConfig(alpha_matmul=True))
     a_records = run_loop(alpha, 10, dev, mm=True)
     a_vals = [float(r["loss"]) for r in a_records]
-    a_bad = [(r["launches"], r["adam_launches"], r["prep_launches"])
+    a_bad = [(r["launches"], r["adam_launches"], r["prep_launches"],
+              r["resize_launches"])
              for r in a_records
              if r["launches"] != (1, 1) or r["adam_launches"] != adam_per_step
-             or r["prep_launches"] != (1, 1)]
+             or r["prep_launches"] != (1, 1)
+             or r["resize_launches"] != (1, 1)]
     if (not all(math.isfinite(v) for v in a_vals) or a_bad or launches != (
             cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)):
         raise AssertionError(f"train_loop alpha_matmul: losses {a_vals}, "
@@ -2566,7 +2694,8 @@ def phase_train_loop(dev, scene, scene_s):
         loss_first=f"{a_vals[0]:.6f}", loss_last=f"{a_vals[-1]:.6f}",
         exact_loss_first=f"{vals[0]:.6f}")
     return (launches, mm_launches, cuda_adam.ADAM_LAUNCHES,
-            tuple(getattr(cuda_preprocess, n) for n in PREP_COUNTERS))
+            tuple(getattr(cuda_preprocess, n) for n in PREP_COUNTERS),
+            tuple(getattr(cuda_resize, n) for n in RESIZE_COUNTERS))
 
 
 def free_port() -> int:
@@ -3391,6 +3520,8 @@ def main(argv=None) -> int:
         adam_row = phase_adam(dev)
     if want("preprocess"):
         prep_rows = phase_preprocess(dev)
+    if want("resize"):
+        resize_rows = phase_resize(dev)
     if want("setup"):
         phase_setup()
     if want("train"):
@@ -3412,8 +3543,8 @@ def main(argv=None) -> int:
     if want("kernel_loop"):
         at_loop = phase_kernel_loop(dev, scene)
     if want("train_loop"):
-        loop, loop_mm, loop_adam, loop_prep = phase_train_loop(dev, scene,
-                                                               scene_s)
+        loop, loop_mm, loop_adam, loop_prep, loop_resize = phase_train_loop(
+            dev, scene, scene_s)
     parity_cli = phase_parity(dev) if want("parity") else None
     try:
         if want("train_cli") or want("serve_cli"):
@@ -3468,7 +3599,11 @@ def main(argv=None) -> int:
              launches=loop_prep[0], **prep_rows[0]),
         dict(name="preprocess_backward", route="cuda",
              source=src + "preprocess.cu", replaces=None,
-             launches=loop_prep[1], **prep_rows[1])]}))
+             launches=loop_prep[1], **prep_rows[1]),
+        dict(name="resize_forward", route="cuda", source=src + "resize.cu",
+             replaces=None, launches=loop_resize[0], **resize_rows[0]),
+        dict(name="resize_backward", route="cuda", source=src + "resize.cu",
+             replaces=None, launches=loop_resize[1], **resize_rows[1])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,10 @@ Gaussian-window SSIM with zero padding, ``rgb_loss`` and the
 align_corners=True bilinear resize that matches rendered feature maps to
 the teacher map. Images are HWC, as in the JAX package. No Pallas kernel is
 involved: the blur is a depthwise ``F.conv2d`` (full f32: the package turns
-cuDNN's TF32 off) and the resize is ``F.interpolate``;
+cuDNN's TF32 off) and the resize of an image is ``F.interpolate``. The
+step's resize of the rasterizer's tile layout, ``resize_bilinear_from_tiles``,
+is one CUDA kernel each way on the card (ops/cuda_resize.py) and
+``tiles_to_image`` + ``F.interpolate`` on the CPU;
 ``resize_bilinear_from_tile_rows``, the tile-sharded step's partial resize,
 applies the two-tap operator by gathers.
 """
@@ -19,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from feature3dgs_tpu_torch import tracing
+from feature3dgs_tpu_torch.ops.cuda_resize import (resize_backward_cuda,
+                                                   resize_forward_cuda)
 from feature3dgs_tpu_torch.ops.rasterize import tiles_to_image
 
 
@@ -100,13 +105,39 @@ def resize_bilinear_align_corners(img: torch.Tensor, out_h: int,
     return out[0].permute(1, 2, 0)
 
 
+class _ResizeFromTiles(torch.autograd.Function):
+    """The tile-layout resize on the card: one forward launch reads the
+    taps straight from the tiles, one backward launch writes the tiles'
+    gradient in tile layout, every element (ops/csrc/resize.cu). Nothing
+    is saved for the backward but the shapes."""
+
+    @staticmethod
+    def forward(ctx, tiles, grid, out_h, out_w):
+        ctx.grid, ctx.out_hw = grid, (out_h, out_w)
+        return resize_forward_cuda(tiles, grid, out_h, out_w)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        with tracing.span("loss.resize_backward"):
+            g_tiles = resize_backward_cuda(g_out.contiguous(), ctx.grid,
+                                           *ctx.out_hw)
+        return g_tiles, None, None, None
+
+
 def resize_bilinear_from_tiles(tiles: torch.Tensor, grid, out_h: int,
                                out_w: int) -> torch.Tensor:
     """align_corners bilinear resize of the rasterizer's tile layout
-    [num_tiles, pixels_per_tile, C] to [out_h, out_w, C]. Unlike the JAX
-    package, which folds the tile permutation into its interpolation
-    operators, this assembles the [H, W, C] image first (one extra copy of
-    the feature map) and resizes it."""
+    [num_tiles, pixels_per_tile, C] to [out_h, out_w, C]. A CUDA tensor
+    goes through ``_ResizeFromTiles`` (the kernels, which never assemble
+    the image); a CPU tensor, and the same-size case (no resize), through
+    ``tiles_to_image`` + ``resize_bilinear_align_corners``. Counters
+    ``loss.resize_fused`` and ``loss.resize_plain`` count the views each
+    path served."""
+    if tiles.device.type == "cuda" and (grid.height, grid.width) != (
+            out_h, out_w):
+        tracing.count("loss.resize_fused")
+        return _ResizeFromTiles.apply(tiles, grid, out_h, out_w)
+    tracing.count("loss.resize_plain")
     return resize_bilinear_align_corners(tiles_to_image(tiles, grid), out_h,
                                          out_w)
 

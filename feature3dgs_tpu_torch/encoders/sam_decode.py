@@ -10,15 +10,31 @@ transformers' SamModel takes ``image_embeddings=``, so the rendered
 encoder and mask decoder run.
 
 Everything stays on the model's device: the embedding, the mask logits
-(a batch of 64 points x 3 masks at 1216x800 is ~750 MB of float32), the
-stability scores, boxes and ``box_nms``'s IoUs and greedy pass; the host
-gets the kept records' scalars and a caller copies the masks it keeps.
+(a batch of 64 points x 3 masks at 1216x800 is ~750 MB of float32), their
+post-processing (``postprocess_masks``, segment-anything's own, with
+``F.interpolate`` on the device whatever ``transformers``' processor does),
+the stability scores, boxes and ``box_nms``'s IoUs and greedy pass; the
+host gets the kept records' scalars and a caller copies the masks it keeps.
 Prompt coordinates are scaled with the processor's closed-form rules
 (SamProcessor._normalize_coordinates, SamImageProcessor.
 _get_preprocess_shape), in the dtypes the processor would produce, so no
 dummy image is resized. The geometry helpers of segment_anything/utils/
 amg.py are numpy where they make host lists and torch where they touch
 masks.
+
+Spans (``tracing.py``): ``sam.decode``, each call of the model (a hook set
+by ``sam_encoder.build_sam`` / ``load_sam``: the prompt encoder and mask
+decoder), ``sam.postprocess`` after it (and in ``auto_masks`` once more a
+crop, for the masks its NMS kept), and in ``auto_masks`` ``sam.select``:
+one a point batch (the IoU and stability filters, the boxes, the uncrop
+and the crop-edge test), one a crop (its box NMS) and one a call (the
+cross-crop NMS and the records' boxes). Counters
+``sam.prompts`` (prompts decoded), ``sam.candidates`` (masks past both
+filters), ``sam.masks`` (records returned) and ``host_wait.sam_<site>`` at
+each read of the card's values on the host (``candidates``, one a point
+batch; ``nms``, one a round; ``nms_keep``) and each copy from the host to
+the card (``prompt_upload``, ``emb_upload``, ``box_upload``,
+``order_upload``, ``index_upload``), which waits on it too.
 """
 from __future__ import annotations
 
@@ -29,7 +45,9 @@ from argparse import ArgumentParser
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from feature3dgs_tpu_torch import tracing
 from feature3dgs_tpu_torch.encoders.sam_encoder import load_sam
 
 # segment-anything mask decoding constants (modeling/sam.py mask_threshold,
@@ -43,12 +61,22 @@ def _model(sam, device):
     return model, proc, next(model.parameters()).device
 
 
-def pad_embedding(emb_chw, device) -> torch.Tensor:
+def _upload(t: torch.Tensor, device, site: str) -> torch.Tensor:
+    """``t`` on ``device``; a copy there from the host waits on the card,
+    counted as ``host_wait.<site>``."""
+    if t.device.type != torch.device(device).type:
+        tracing.count(f"host_wait.{site}")
+    return t.to(device)
+
+
+def pad_embedding(emb_chw, device, grid: int = 64) -> torch.Tensor:
     """A rendered embedding [256,h,w] (aspect-cropped, numpy or a tensor)
-    zero-padded back to [1, 256, 64, 64] float32 on ``device``."""
-    emb = torch.as_tensor(emb_chw).to(device, torch.float32)
+    zero-padded back to [1, 256, grid, grid] float32 on ``device`` (64 x 64
+    at SAM's published input size)."""
+    emb = _upload(torch.as_tensor(emb_chw), device,
+                  "sam_emb_upload").to(torch.float32)
     c, h, w = emb.shape
-    out = torch.zeros((1, c, 64, 64), device=device)
+    out = torch.zeros((1, c, grid, grid), device=device)
     out[0, :, :h, :w] = emb
     return out
 
@@ -58,6 +86,25 @@ def _frame(proc, h: int, w: int) -> tuple[int, int]:
     target = proc.image_processor.size["longest_edge"]
     scale = target * 1.0 / max(h, w)
     return int(h * scale + 0.5), int(w * scale + 0.5)
+
+
+def _sizes(model) -> tuple[int, int]:
+    """(the model's square input side, its embedding grid side)."""
+    pe = model.config.prompt_encoder_config
+    return pe.image_size, pe.image_embedding_size
+
+
+def postprocess_masks(low_res: torch.Tensor, input_hw: tuple[int, int],
+                      image_hw: tuple[int, int], size: int) -> torch.Tensor:
+    """segment-anything's ``Sam.postprocess_masks`` (modeling/sam.py) on the
+    logits' device: [B, C, h, w] low-resolution mask logits upsampled
+    bilinearly to the ``size`` x ``size`` input, cropped to the resized
+    image ``input_hw`` and resized bilinearly to ``image_hw``; float
+    logits, no threshold."""
+    x = F.interpolate(low_res, (size, size), mode="bilinear",
+                      align_corners=False)
+    x = x[..., :input_hw[0], :input_hw[1]]
+    return F.interpolate(x, image_hw, mode="bilinear", align_corners=False)
 
 
 @torch.no_grad()
@@ -71,23 +118,30 @@ def decode_masks(emb_chw, image_hw: tuple[int, int], points=None,
     model's device; with ``return_logits`` the masks are float logits
     (threshold at MASK_THRESHOLD for the binary mask)."""
     model, proc, dev = _model(sam, device)
+    size, grid = _sizes(model)
     h, w = image_hw
     rh, rw = _frame(proc, h, w)
     scale = np.array([rw / w, rh / h])
     kwargs = {}
     if points is not None:
         pts = np.asarray([[list(map(float, p)) for p in points]]) * scale
-        kwargs["input_points"] = torch.from_numpy(pts)[:, None].to(dev)
+        kwargs["input_points"] = _upload(torch.from_numpy(pts)[:, None],
+                                         dev, "sam_prompt_upload")
         lab = np.array([list(labels or [1] * len(points))])
-        kwargs["input_labels"] = torch.from_numpy(lab)[:, None].to(dev)
+        kwargs["input_labels"] = _upload(torch.from_numpy(lab)[:, None],
+                                         dev, "sam_prompt_upload")
     if boxes is not None:
         bx = np.asarray([[list(map(float, b)) for b in boxes]])
         bx = (bx.reshape(1, -1, 2, 2) * scale).reshape(1, -1, 4)
-        kwargs["input_boxes"] = torch.from_numpy(bx).to(dev)
-    out = model(image_embeddings=pad_embedding(emb_chw, dev),
+        kwargs["input_boxes"] = _upload(torch.from_numpy(bx), dev,
+                                        "sam_prompt_upload")
+    out = model(image_embeddings=pad_embedding(emb_chw, dev, grid),
                 multimask_output=True, **kwargs)
-    masks = proc.image_processor.post_process_masks(
-        out.pred_masks, [[h, w]], [[rh, rw]], binarize=not return_logits)[0]
+    tracing.count("sam.prompts", out.pred_masks.shape[1])
+    with tracing.span("sam.postprocess"):
+        masks = postprocess_masks(out.pred_masks[0], (rh, rw), (h, w), size)
+    if not return_logits:
+        masks = masks > MASK_THRESHOLD
     return masks[0], out.iou_scores[0, 0]
 
 
@@ -171,11 +225,12 @@ def is_box_near_crop_edge(boxes, crop_box, orig_box,
     """True for boxes at a crop edge but not at the original image edge
     (amg.py:78-89); ``boxes`` already in the ORIGINAL frame."""
     boxes = torch.as_tensor(boxes, dtype=torch.float64)
-    crop = torch.tensor(crop_box, dtype=torch.float64, device=boxes.device)
-    orig = torch.tensor(orig_box, dtype=torch.float64, device=boxes.device)
-    near_crop = torch.isclose(boxes, crop[None], atol=atol, rtol=0)
-    near_orig = torch.isclose(boxes, orig[None], atol=atol, rtol=0)
-    return (near_crop & ~near_orig).any(1)
+
+    def near(edges):    # torch.isclose(rtol=0), column by column
+        return torch.stack([(boxes[:, i] - float(e)).abs() <= atol
+                            for i, e in enumerate(edges)], 1)
+
+    return (near(crop_box) & ~near(orig_box)).any(1)
 
 
 def box_nms(boxes, scores, iou_thresh: float) -> torch.Tensor:
@@ -189,13 +244,14 @@ def box_nms(boxes, scores, iou_thresh: float) -> torch.Tensor:
     their IoU passes the threshold. The greedy set is the fixed point of
     ``keep[j] = not any(keep[i] and suppresses[i, j] for i < j)``: each
     round settles at least the next box, so the rounds stop once the set
-    stops changing (one host read a round, a few rounds in practice)."""
+    stops changing (one host read a round, a few rounds in practice;
+    counted as ``host_wait.sam_nms`` with the read of the kept indices)."""
     boxes = torch.as_tensor(boxes, dtype=torch.float64)
     if isinstance(scores, torch.Tensor):
         scores = scores.cpu().numpy()
     n = boxes.shape[0]
-    order = torch.from_numpy(np.argsort(-np.asarray(scores))).to(
-        boxes.device)
+    order = _upload(torch.from_numpy(np.argsort(-np.asarray(scores))),
+                    boxes.device, "sam_order_upload")
     b = boxes[order]
     areas = (torch.clamp_min(b[:, 2] - b[:, 0], 0)
              * torch.clamp_min(b[:, 3] - b[:, 1], 0))
@@ -210,9 +266,31 @@ def box_nms(boxes, scores, iou_thresh: float) -> torch.Tensor:
     keep = torch.ones(n, dtype=torch.bool, device=boxes.device)
     while True:
         nxt = ~(suppresses & keep[:, None]).any(0)
+        tracing.count("host_wait.sam_nms")
         if torch.equal(nxt, keep):
+            tracing.count("host_wait.sam_nms")
             return order[keep]
         keep = nxt
+
+
+def _decode_low_res(emb_chw, image_hw: tuple[int, int], points, sam):
+    """One model call on a batch of SINGLE-point prompts: (low-resolution
+    logits [P,3,4g,4g] as the model returns them, iou_preds [P,3], the
+    resized frame (rh, rw), the model's input side)."""
+    model, proc, dev = _model(sam, None)
+    size, grid = _sizes(model)
+    h, w = image_hw
+    rh, rw = _frame(proc, h, w)
+    pts = np.asarray(points, np.float64) * np.array([rw / w, rh / h])
+    input_points = _upload(torch.from_numpy(pts[None, :, None, :]).float(),
+                           dev, "sam_prompt_upload")
+    input_labels = torch.ones(input_points.shape[:-1], dtype=torch.int64,
+                              device=dev)
+    out = model(image_embeddings=pad_embedding(emb_chw, dev, grid),
+                input_points=input_points, input_labels=input_labels,
+                multimask_output=True)
+    tracing.count("sam.prompts", out.pred_masks.shape[1])
+    return out.pred_masks[0], out.iou_scores[0], (rh, rw), size
 
 
 @torch.no_grad()
@@ -220,19 +298,12 @@ def _decode_point_batch(emb_chw, image_hw: tuple[int, int], points,
                         sam=None, device=None):
     """Decode a batch of SINGLE-point prompts in one model call: (logits
     [P,3,H,W], iou_preds [P,3]) at ``image_hw``, on the model's device."""
-    model, proc, dev = _model(sam, device)
-    h, w = image_hw
-    rh, rw = _frame(proc, h, w)
-    pts = np.asarray(points, np.float64) * np.array([rw / w, rh / h])
-    input_points = torch.from_numpy(pts[None, :, None, :]).float().to(dev)
-    input_labels = torch.ones(input_points.shape[:-1], dtype=torch.int64,
-                              device=dev)
-    out = model(image_embeddings=pad_embedding(emb_chw, dev),
-                input_points=input_points, input_labels=input_labels,
-                multimask_output=True)
-    logits = proc.image_processor.post_process_masks(
-        out.pred_masks, [(h, w)], [(rh, rw)], binarize=False)[0]
-    return logits, out.iou_scores[0]
+    sam = _model(sam, device)[:2]
+    low, ious, input_hw, size = _decode_low_res(emb_chw, image_hw, points,
+                                                sam)
+    with tracing.span("sam.postprocess"):
+        logits = postprocess_masks(low, input_hw, image_hw, size)
+    return logits, ious
 
 
 @torch.no_grad()
@@ -253,12 +324,20 @@ def auto_masks(emb_chw, image_hw: tuple[int, int],
     predicted-IoU and stability filtering, crop-edge box rejection,
     per-crop box NMS, and cross-crop NMS preferring smaller crops.
 
+    A crop's full-size logits live one point batch at a time: each batch
+    leaves its low-resolution logits (a fixed [points, 3, 4g, 4g] store,
+    ~0.8 GB at 1,024 points) and its candidates' scalars on the host, and
+    only the masks its NMS keeps are post-processed again to full size
+    (the same per-mask arithmetic, so the same masks), as segment-anything
+    keeps its candidates as run-length codes until NMS. The card's memory
+    thus does not grow with the number of candidates.
+
     Returns a list of {"segmentation" bool [H,W] on the device, "area",
     "bbox" xywh, "predicted_iou", "point_coords", "stability_score",
     "crop_box" xywh} sorted by area (desc), the reference's records."""
     model, proc, dev = _model(sam, device)
     sam = (model, proc)
-    emb = pad_embedding(emb_chw, dev)[0]
+    emb = pad_embedding(emb_chw, dev, _sizes(model)[1])[0]
     orig_h, orig_w = image_hw
     crop_boxes, layer_idxs = generate_crop_boxes(
         image_hw, crop_n_layers, crop_overlap_ratio)
@@ -270,65 +349,119 @@ def auto_masks(emb_chw, image_hw: tuple[int, int],
         x0, y0, x1, y1 = crop_box
         crop_hw = (y1 - y0, x1 - x0)
         pts = grids[layer] * np.array([crop_hw[1], crop_hw[0]])[None]
-        crop_recs: list[dict] = []
+        store, crop_recs = None, []
         for s in range(0, len(pts), points_per_batch):
             batch = pts[s: s + points_per_batch]
-            logits, ious = _decode_point_batch(emb, crop_hw, batch, sam)
-            lg = logits.reshape(-1, *crop_hw)          # [P*3, h, w]
-            sc = ious.reshape(-1)
-            pt = torch.from_numpy(np.repeat(batch, logits.shape[1], 0))
-            keep = sc > pred_iou_thresh
-            hi = (lg > MASK_THRESHOLD + STABILITY_OFFSET).sum((1, 2))
-            lo = (lg > MASK_THRESHOLD - STABILITY_OFFSET).sum((1, 2))
-            stab = hi.double() / torch.clamp_min(lo, 1).double()
-            keep &= stab >= stability_thresh
-            idx = torch.nonzero(keep)[:, 0]
-            if not len(idx):
-                continue
-            masks = lg[idx] > MASK_THRESHOLD
-            boxes = batched_mask_to_box(masks)
-            boxes += torch.tensor([x0, y0, x0, y0], dtype=torch.float64,
-                                  device=dev)[None]  # uncrop
-            edge = is_box_near_crop_edge(boxes, crop_box,
-                                         [0, 0, orig_w, orig_h])
-            inner = torch.nonzero(~edge)[:, 0]
-            full = torch.zeros((len(inner), orig_h, orig_w), dtype=torch.bool,
-                               device=dev)
-            full[:, y0:y1, x0:x1] = masks[inner]
-            areas = masks[inner].sum((1, 2)).tolist()
-            picked = idx[inner]
-            scores, stabs = sc[picked].tolist(), stab[picked].tolist()
-            points = pt[picked.cpu()].tolist()
-            for j in range(len(inner)):
-                crop_recs.append({
-                    "segmentation": full[j], "area": int(areas[j]),
-                    "box_xyxy": boxes[inner[j]],
-                    "predicted_iou": scores[j],
-                    "point_coords": [[points[j][0] + x0, points[j][1] + y0]],
-                    "stability_score": stabs[j],
-                    "crop_box": crop_box})
+            low, ious, input_hw, size = _decode_low_res(emb, crop_hw, batch,
+                                                        sam)
+            if store is None:
+                store = low.new_empty((len(pts),) + low.shape[1:])
+            store[s: s + len(batch)] = low
+            with tracing.span("sam.postprocess"):
+                logits = postprocess_masks(low, input_hw, crop_hw, size)
+            del low
+            with tracing.span("sam.select"):
+                crop_recs += _select(logits, ious, batch, s, crop_box,
+                                     (orig_h, orig_w), pred_iou_thresh,
+                                     stability_thresh)
+            del logits
         if crop_recs:  # per-crop NMS on predicted IoU
-            keep = box_nms(torch.stack([r["box_xyxy"] for r in crop_recs]),
-                           [r["predicted_iou"] for r in crop_recs],
-                           box_nms_thresh)
-            all_recs.extend(crop_recs[i] for i in keep.tolist())
+            with tracing.span("sam.select"):
+                keep = box_nms(
+                    _upload(torch.tensor([r["box_xyxy"] for r in crop_recs],
+                                         dtype=torch.float64),
+                            dev, "sam_box_upload"),
+                    [r["predicted_iou"] for r in crop_recs], box_nms_thresh)
+                tracing.count("host_wait.sam_nms_keep")
+                crop_recs = [crop_recs[i] for i in keep.tolist()]
+            with tracing.span("sam.postprocess"):
+                _masks(crop_recs, store.flatten(0, 1), input_hw, crop_box,
+                       (orig_h, orig_w), size, 3 * points_per_batch)
+            all_recs.extend(crop_recs)
+        del store
 
-    if len(crop_boxes) > 1 and all_recs:  # cross-crop NMS, smaller wins
-        def crop_area(r):
+    with tracing.span("sam.select"):
+        if len(crop_boxes) > 1 and all_recs:  # cross-crop NMS, smaller wins
+            def crop_area(r):
+                cb = r["crop_box"]
+                return (cb[2] - cb[0]) * (cb[3] - cb[1])
+            keep = box_nms(
+                _upload(torch.tensor([r["box_xyxy"] for r in all_recs],
+                                     dtype=torch.float64),
+                        dev, "sam_box_upload"),
+                [1.0 / crop_area(r) for r in all_recs], crop_nms_thresh)
+            tracing.count("host_wait.sam_nms_keep")
+            all_recs = [all_recs[i] for i in keep.tolist()]
+
+        for r in all_recs:
+            b = r.pop("box_xyxy")
             cb = r["crop_box"]
-            return (cb[2] - cb[0]) * (cb[3] - cb[1])
-        keep = box_nms(torch.stack([r["box_xyxy"] for r in all_recs]),
-                       [1.0 / crop_area(r) for r in all_recs],
-                       crop_nms_thresh)
-        all_recs = [all_recs[i] for i in keep.tolist()]
-
-    for r in all_recs:
-        b = r.pop("box_xyxy").tolist()
-        cb = r["crop_box"]
-        r["bbox"] = [b[0], b[1], b[2] - b[0], b[3] - b[1]]
-        r["crop_box"] = [cb[0], cb[1], cb[2] - cb[0], cb[3] - cb[1]]
+            r["bbox"] = [b[0], b[1], b[2] - b[0], b[3] - b[1]]
+            r["crop_box"] = [cb[0], cb[1], cb[2] - cb[0], cb[3] - cb[1]]
+    tracing.count("sam.masks", len(all_recs))
     all_recs.sort(key=lambda d: -d["area"])
     return all_recs
+
+
+def _select(logits, ious, batch, first, crop_box, orig_hw, pred_iou_thresh,
+            stability_thresh) -> list:
+    """One point batch's candidates ([P,3,h,w] logits in the crop, [P,3]
+    predicted IoUs, the [P,2] points, the first point's index in the
+    crop's grid) through the predicted-IoU and stability filters,
+    thresholded to masks with their boxes, uncropped, and those at a crop
+    edge dropped: its records, without their masks, each with its box in
+    the original frame ("box_xyxy") and its row of the crop's logits
+    ("mask_index"). Every mask of the batch is scored on the card, and the
+    host reads the table once."""
+    x0, y0, x1, y1 = crop_box
+    orig_h, orig_w = orig_hw
+    lg = logits.reshape(-1, *logits.shape[-2:])        # [P*3, h, w]
+    sc = ious.reshape(-1)
+    passed = sc > pred_iou_thresh
+    hi = (lg > MASK_THRESHOLD + STABILITY_OFFSET).sum((1, 2))
+    lo = (lg > MASK_THRESHOLD - STABILITY_OFFSET).sum((1, 2))
+    stab = hi.double() / torch.clamp_min(lo, 1).double()
+    passed &= stab >= stability_thresh
+    masks = lg > MASK_THRESHOLD
+    boxes = batched_mask_to_box(masks)
+    boxes[:, 0::2] += x0                               # uncrop
+    boxes[:, 1::2] += y0
+    edge = is_box_near_crop_edge(boxes, crop_box, [0, 0, orig_w, orig_h])
+    table = torch.cat([torch.stack([passed, edge], 1).double(),
+                       sc.double()[:, None], stab[:, None],
+                       masks.sum((1, 2)).double()[:, None], boxes], 1)
+    tracing.count("host_wait.sam_candidates")
+    table = table.cpu().numpy()
+    tracing.count("sam.candidates", int(table[:, 0].sum()))
+    n_masks = logits.shape[1]
+    return [{"area": int(row[4]), "box_xyxy": row[5:9].tolist(),
+             "predicted_iou": float(row[2]),
+             "point_coords": [[float(batch[j // n_masks][0] + x0),
+                               float(batch[j // n_masks][1] + y0)]],
+             "stability_score": float(row[3]), "crop_box": crop_box,
+             "mask_index": first * n_masks + j}
+            for j, row in enumerate(table) if row[0] and not row[1]]
+
+
+def _masks(recs: list, low_res, input_hw, crop_box, orig_hw, size: int,
+           chunk: int) -> None:
+    """Each record's full-size mask ("segmentation", bool [H, W] on the
+    card) from its row of the crop's low-resolution logits ``low_res``
+    [M, h, w]: post-processed, ``chunk`` at a time, thresholded, and
+    placed in the crop."""
+    x0, y0, x1, y1 = crop_box
+    idx = _upload(torch.tensor([r.pop("mask_index") for r in recs]),
+                  low_res.device, "sam_index_upload")
+    for s in range(0, len(recs), chunk):
+        logits = postprocess_masks(low_res[idx[s: s + chunk], None],
+                                   input_hw, (y1 - y0, x1 - x0), size)
+        part = logits[:, 0] > MASK_THRESHOLD
+        if part.shape[-2:] != orig_hw:
+            full = part.new_zeros((len(part),) + tuple(orig_hw))
+            full[:, y0:y1, x0:x1] = part
+            part = full
+        for r, m in zip(recs[s: s + chunk], part):
+            r["segmentation"] = m
 
 
 def main(argv=None) -> int:

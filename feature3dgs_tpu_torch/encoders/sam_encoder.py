@@ -17,8 +17,11 @@ Spans (``tracing.py``): ``sam.encode`` holds ``sam.preprocess`` (the
 processor on the host and the upload), one ``sam.window_block`` or
 ``sam.global_block`` a block, and ``sam.neck``; counters ``sam.images``,
 ``host_wait.sam_upload`` and ``host_wait.sam_embedding`` (the export's copy
-to the host). The block and neck spans are hooks on the ``transformers``
-modules, set by ``build_sam`` and ``load_sam``.
+to the host). ``sam.decode`` is each call of the ``SamModel`` itself, which
+the port makes with embeddings only (``sam_decode.py``): the image's
+positional encoding, the prompt encoder and the mask decoder. The block,
+neck and model spans are hooks on the ``transformers`` modules, set by
+``build_sam`` and ``load_sam``.
 """
 from __future__ import annotations
 
@@ -45,29 +48,40 @@ VIT_H = dict(hidden_size=1280, num_hidden_layers=32, num_attention_heads=16,
 
 
 def _span_blocks(model):
-    """Hook the spans of each vision block (windowed or global) and of the
-    neck onto ``model``'s ``transformers`` modules."""
+    """Hook the spans of each vision block (windowed or global), of the
+    neck and of the whole model's call onto ``model``'s ``transformers``
+    modules."""
     enc = model.vision_encoder
     globals_ = set(enc.config.global_attn_indexes)
     for i, layer in enumerate(enc.layers):
         tracing.span_calls(layer, "sam.global_block" if i in globals_
                            else "sam.window_block")
     tracing.span_calls(enc.neck, "sam.neck")
+    tracing.span_calls(model, "sam.decode")
     return model
 
 
 def build_sam(device=None, generator: torch.Generator | None = None,
-              **dims):
+              prompt_encoder: dict | None = None,
+              mask_decoder: dict | None = None, **dims):
     """(SamModel in eval mode on ``default_device(device)``, SamProcessor)
     at SAM ViT-H's published widths (``VIT_H``; ``dims`` override
-    SamVisionConfig keys, so tests build a tiny one), the processor
-    resizing the long side to the model's input size and padding to it.
-    With ``generator`` the weights are drawn from it
-    (``encoders.seeded_init_``)."""
-    from transformers import SamConfig, SamModel, SamVisionConfig
+    SamVisionConfig keys, and ``prompt_encoder`` / ``mask_decoder``
+    SamPromptEncoderConfig / SamMaskDecoderConfig keys, whose defaults are
+    segment-anything's published prompt encoder and mask decoder; so tests
+    build a tiny one), the processor resizing the long side to the model's
+    input size and padding to it. With ``generator`` the weights are drawn
+    from it (``encoders.seeded_init_``)."""
+    from transformers import (SamConfig, SamMaskDecoderConfig, SamModel,
+                              SamPromptEncoderConfig, SamVisionConfig)
     dev = default_device(device)
     vision = dict(VIT_H, **dims)
-    cfg = SamConfig(vision_config=SamVisionConfig(**vision).to_dict())
+    cfg = SamConfig(
+        vision_config=SamVisionConfig(**vision).to_dict(),
+        prompt_encoder_config=SamPromptEncoderConfig(
+            **(prompt_encoder or {})).to_dict(),
+        mask_decoder_config=SamMaskDecoderConfig(
+            **(mask_decoder or {})).to_dict())
     with torch.device(dev):
         model = SamModel(cfg)
     if generator is not None:

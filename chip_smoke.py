@@ -47,6 +47,14 @@ Phases, one line each; any failure raises and exits non-zero:
                bench.py's loss, at 1e-5; two kernel + segment-sum runs
                bit-equal; kernel, plain and segment-sum times, the bound
                and the design's bytes (passes over the cotangent rows).
+               The segment-sum kernel (ops/csrc/segment.cu) on those rows
+               with the plan built: bit-equal to segment_reduce(rows[order])
+               (the plain path), both timed (20 calls of both arrays) beside
+               the bytes bound, launches a call, the team and attributes;
+               the same at the training cells' shapes (1M Gaussians drawn
+               as their scene is, orbit view 0 binned into ~5.5M entries,
+               random rows of 10 geometric and F = 128, 512 feature
+               channels).
   kernel_bwd_slice  the backward kernel's tile_base and n_per_camera at the
                training scene: over 2 and 4 slices of tile rows of view 0
                (each its own sub-range of gid_sorted, rebased starts) the
@@ -110,7 +118,7 @@ Phases, one line each; any failure raises and exits non-zero:
                default sizes, 2 timed calls a row: cli.micro_segsum (the
                segment-sum at 552,960 x 256 -> 100,000 x 256 with a
                quarter of the rows dropped; every variant against the
-               first at 1e-3, SegmentPlan's segment_reduce against
+               first at 1e-3, SegmentPlan's segment-sum kernel against
                index_add_ among them), cli.micro_expand (the instance
                expansion at 524,288 slots: six layouts bit-equal, the
                port's expansion with and without its host read bit-equal
@@ -184,13 +192,15 @@ Phases, one line each; any failure raises and exits non-zero:
                finite; clones, splits and prunes non-zero; a Gaussian-
                capacity growth and an instance-capacity growth; one forward
                and one backward launch per step of each of the compositing,
-               preprocess and resize kernels; a checkpoint saved mid-run
+               preprocess and resize kernels, and one segment-sum launch
+               (both row arrays); a checkpoint saved mid-run
                resumes in a fresh Trainer to the same next step (loss 1e-5
                relative, Adam mu 1e-4 max-normalised); the saved PLY serves
                finite.
                Step times (plain steps, steps that carry maintenance), the
                round's own ms, host syncs per step, peak memory. Then 10
-               steps with alpha_matmul=True from a fresh Trainer.
+               steps with alpha_matmul=True from a fresh Trainer, held to
+               the same launches a step.
   train_batch  4 cameras a step through parallel.DistributedTrainer on a
                1 x 1 mesh (bench.py's Gaussians, train_loop's orbit cameras
                0-3 with their images and teachers): the first step's loss
@@ -260,7 +270,10 @@ forward entries also with batch8_ms and batch8_bound_ms, the two backward
 entries with batch4_ms and batch4_bound_ms, all four with f256_ms,
 f256_bound_ms, f512_ms and f512_bound_ms from kernel_wide; a fifth entry,
 adam, with adam's times and bounds at F = 128 and 512; then the two
-preprocess and the two resize kernels) and, last,
+preprocess and the two resize kernels, and the segment-sum with its times
+and bound at the training scene and, as kernel_ms_f128 .. bound_ms_f512,
+at the training cells' shapes, and train_loop's launches)
+and, last,
 {"ok": true, "device": {...}}. With --profile DIR, torch.profiler tables of
 two served views, of the 8 views sequential and in a batch of 8 (with the
 device-busy ms and idle share of each) and of two training steps are
@@ -298,6 +311,7 @@ OPS_BWD_WALKED, OPS_BWD_CONTRIB = 15, 50
 
 N_GAUSS, F_DIM, F_OUT, WIDTH, HEIGHT = 100_000, 128, 512, 1216, 800
 N_VIEWS = 8
+CELL_GAUSS = 1_000_000  # the training cells' Gaussians (segment-sum timing)
 BATCH = 4       # cameras a step of train_batch, views of kernel_bwd_slice
 # configs/edit_*.yaml as mappings, so that this check needs no PyYAML (the
 # render CLI reads them as JSON); tests/test_torch_tasks.py holds them equal
@@ -919,8 +933,8 @@ def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
 
     def kernel_and_sum():
         rows = raster_backward_cuda(*args, check_lists=False)
-        p = SegmentPlan(ci.bins.gid_sorted, N_GAUSS)
-        return rows, p.sum(rows.geom), p.sum(rows.feature)
+        return (rows, *SegmentPlan(ci.bins.gid_sorted, N_GAUSS).sums(
+            rows.feature, rows.geom))
 
     first, second = kernel_and_sum(), kernel_and_sum()
     for a, b in zip(first[0] + first[1:], second[0] + second[1:]):
@@ -930,10 +944,11 @@ def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
                         20)
 
     def segment_sum():
-        p = SegmentPlan(ci.bins.gid_sorted, N_GAUSS)
-        return p.sum(got.geom), p.sum(got.feature)
+        return SegmentPlan(ci.bins.gid_sorted, N_GAUSS).sums(got.feature,
+                                                             got.geom)
 
     segment_ms = cuda_ms(segment_sum, 20)
+    seg = segment_sum_fields(plan, got.feature, got.geom)
     n_bytes, ops, n_walked, n_contributing = backward_bound(
         stats, ci.grid.num_tiles, ci.grid.pixels_per_tile, n_inst)
     design = backward_design_bytes(ci, fwd.n_contrib)
@@ -947,8 +962,100 @@ def phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature):
         bound_bytes_ms=f"{bytes_bound_ms(n_bytes):.4f}", bound_ops=ops,
         bound_ops_ms=f"{ops / PEAK_F32_FLOPS * 1e3:.4f}",
         **{"design_" + k: v for k, v in design.items()})
-    return {"max_abs_err": abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            **bound_fields(n_bytes, ops)}
+    say("kernel_bwd_full_segment_sum", instances=n_inst, **seg)
+    del ci, fwd, rest, args, got, ref, first, second, plan
+    cells = segment_sum_at_cell_shapes(dev)
+    return ({"max_abs_err": abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
+             **bound_fields(n_bytes, ops)},
+            {**{k: seg[k] for k in ("kernel_ms", "plain_ms", "bound_ms")},
+             **{f"{k}_f{f}": row[k] for f, row in cells.items()
+                for k in ("kernel_ms", "plain_ms", "bound_ms")}})
+
+
+def segment_sum_fields(plan, feature, geom) -> dict:
+    """The segment-sum kernel (ops/csrc/segment.cu) on a backward's feature
+    and geometric rows with ``plan`` built, as the step calls it
+    (``plan.sums(feature, geom)``): bit-equal to the plain path
+    (``segment_reduce(rows[order])``, which it replaces on the card), each
+    path's ms (CUDA events, mean of 20 calls of both arrays), launches a
+    call, the bytes bound (each row, ``order`` and ``bounds`` read once,
+    the sums written once), and the feature rows' team and its
+    attributes."""
+    import torch
+    from feature3dgs_tpu_torch.ops import cuda_segment
+
+    def plain():
+        lengths = plan.bounds.diff()
+        return [torch.segment_reduce(r[plan.order], "sum", lengths=lengths,
+                                     unsafe=True) for r in (feature, geom)]
+
+    before = cuda_segment.SEGMENT_LAUNCHES
+    fused = plan.sums(feature, geom)
+    launches = cuda_segment.SEGMENT_LAUNCHES - before
+    for name, a, b in zip(("feature", "geom"), fused, plain()):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"segment sum of the {name} rows differs "
+                                 "from segment_reduce(rows[order])")
+    del fused
+    n_inst, n = feature.shape[0], plan.bounds.shape[0] - 1
+    n_bytes = 8 * (n_inst + n + 1) + sum(4 * r.shape[1] * (n_inst + n)
+                                         for r in (feature, geom))
+    team = cuda_segment.team_plan(
+        feature.shape[1],
+        feature.shape[1] % 4 == 0 and feature.data_ptr() % 16 == 0)
+    return dict(
+        bit_equal_to_plain=True, launches_a_call=launches,
+        kernel_ms=f"{cuda_ms(lambda: plan.sums(feature, geom), 20):.4f}",
+        plain_ms=f"{cuda_ms(plain, 20):.4f}", bound_bytes=n_bytes,
+        bound_ms=f"{bytes_bound_ms(n_bytes):.4f}",
+        team=json.dumps(team._asdict()).replace(" ", ""),
+        attributes=json.dumps(cuda_segment.kernel_attributes(
+            team.vec4, team.per_lane)).replace(" ", ""))
+
+
+def segment_sum_at_cell_shapes(dev) -> dict:
+    """The segment-sum at the training cells' shapes: 1M Gaussians drawn as
+    the cells' scene is (port_bench/configs/lseg512.json's "scene": means
+    U[-2, 2]^3, log-scales N(log 0.02, 0.4^2), random unit quaternions,
+    opacity U(0.05, 0.95)), binned from orbit view 0 at 1216x800 in 32x16
+    tiles (~5.5M entries), and random rows: the 10 geometric channels
+    beside F = 128 and F = 512 feature channels. Returns
+    {F: segment_sum_fields} and says one line a width."""
+    import torch
+    from feature3dgs_tpu_torch.ops.rasterize import (RasterConfig,
+                                                     composite_inputs)
+    from feature3dgs_tpu_torch.ops.segment import SegmentPlan
+    g = torch.Generator(device=dev).manual_seed(0)
+    kw = dict(generator=g, device=dev)
+    n = CELL_GAUSS
+    xyz = torch.rand((n, 3), **kw) * 4.0 - 2.0
+    scales = torch.exp(math.log(0.02) + 0.4 * torch.randn((n, 3), **kw))
+    rotations = torch.nn.functional.normalize(torch.randn((n, 4), **kw),
+                                              dim=-1)
+    opacity = 0.05 + 0.9 * torch.rand((n,), **kw)
+    ci = composite_inputs(
+        xyz, opacity, torch.zeros((n, 1), device=dev),
+        bench_camera(WIDTH, HEIGHT, dev), scales=scales, rotations=rotations,
+        colors_precomp=torch.rand((n, 3), **kw),
+        config=RasterConfig(instance_capacity=1 << 24))
+    gid = ci.bins.gid_sorted
+    if int(ci.bins.total) != gid.shape[0]:
+        raise AssertionError("segment sum at the cells' shapes: instances "
+                             "dropped at the capacity")
+    plan = SegmentPlan(gid, n)
+    lengths = plan.bounds.diff()
+    geom = torch.randn((gid.shape[0], 10), **kw)
+    out = {}
+    for f_dim in (128, 512):
+        feature = torch.randn((gid.shape[0], f_dim), **kw)
+        out[f_dim] = segment_sum_fields(plan, feature, geom)
+        del feature
+        torch.cuda.empty_cache()
+        say("kernel_bwd_full_segment_sum_cells", F=f_dim, gaussians=n,
+            instances=gid.shape[0],
+            gaussians_with_entries=int((lengths > 0).sum()),
+            max_entries=int(lengths.max()), **out[f_dim])
+    return out
 
 
 def phase_kernel_bwd_slice(dev, params, state, gt_image, gt_feature):
@@ -2374,7 +2481,8 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
     import torch
     from feature3dgs_tpu_torch.model import gaussians as G
     from feature3dgs_tpu_torch.ops import (cuda_adam, cuda_preprocess,
-                                           cuda_raster, cuda_resize)
+                                           cuda_raster, cuda_resize,
+                                           cuda_segment)
     names = (("FORWARD_MM_LAUNCHES", "BACKWARD_MM_LAUNCHES") if mm
              else ("FORWARD_LAUNCHES", "BACKWARD_LAUNCHES"))
     records = []
@@ -2385,6 +2493,7 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
         adam_before = cuda_adam.ADAM_LAUNCHES
         prep_before = [getattr(cuda_preprocess, n) for n in PREP_COUNTERS]
         resize_before = [getattr(cuda_resize, n) for n in RESIZE_COUNTERS]
+        segment_before = cuda_segment.SEGMENT_LAUNCHES
         counting = it in count_syncs
 
         def watched(fn, *a, **kw):
@@ -2419,6 +2528,8 @@ def run_loop(trainer, steps, dev, *, mm, count_syncs=()):
                "resize_launches": tuple(getattr(cuda_resize, n) - b
                                         for n, b in zip(RESIZE_COUNTERS,
                                                         resize_before)),
+               "segment_launches": cuda_segment.SEGMENT_LAUNCHES
+               - segment_before,
                "syncs": None}
         if counting:
             sites = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
@@ -2447,7 +2558,8 @@ def phase_train_loop(dev, scene, scene_s):
     import torch
     from feature3dgs_tpu_torch.model.ply_io import load_gaussians_ply
     from feature3dgs_tpu_torch.ops import (cuda_adam, cuda_preprocess,
-                                           cuda_raster, cuda_resize)
+                                           cuda_raster, cuda_resize,
+                                           cuda_segment)
     from feature3dgs_tpu_torch.ops.rasterize import RasterConfig
     from feature3dgs_tpu_torch.render import renderer
     from feature3dgs_tpu_torch.train import checkpoints as ckpt
@@ -2473,6 +2585,7 @@ def phase_train_loop(dev, scene, scene_s):
         setattr(cuda_preprocess, name, 0)
     for name in RESIZE_COUNTERS:
         setattr(cuda_resize, name, 0)
+    cuda_segment.SEGMENT_LAUNCHES = 0
     t0 = time.perf_counter()
     trainer = make(RasterConfig())
     init_s = time.perf_counter() - t0
@@ -2556,15 +2669,17 @@ def phase_train_loop(dev, scene, scene_s):
     # one fused Adam launch a step for the Gaussians, one more for a decoder
     adam_per_step = 2 if trainer.speedup else 1
     # and one preprocess and one resize launch each way: the view's
-    # forward, the step's backward
+    # forward, the step's backward; one segment-sum launch for the
+    # backward's feature and geometric rows
     bad = [(r["it"], r["launches"], r["adam_launches"], r["prep_launches"],
-            r["resize_launches"])
+            r["resize_launches"], r["segment_launches"])
            for r in records
            if r["launches"] != (1, 1) or r["adam_launches"] != adam_per_step
-           or r["prep_launches"] != (1, 1) or r["resize_launches"] != (1, 1)]
+           or r["prep_launches"] != (1, 1) or r["resize_launches"] != (1, 1)
+           or r["segment_launches"] != 1]
     if bad:
-        raise AssertionError(f"train_loop: raster, Adam, preprocess and "
-                             f"resize launches per step {bad}")
+        raise AssertionError(f"train_loop: raster, Adam, preprocess, resize "
+                             f"and segment-sum launches per step {bad}")
     log = trainer.densify_log
     totals = {k: sum(r[k] for r in log)
               for k in ("num_cloned", "num_split", "num_pruned")}
@@ -2620,6 +2735,7 @@ def phase_train_loop(dev, scene, scene_s):
     adam_launches = cuda_adam.ADAM_LAUNCHES
     prep_launches = [getattr(cuda_preprocess, n) for n in PREP_COUNTERS]
     resize_launches = [getattr(cuda_resize, n) for n in RESIZE_COUNTERS]
+    segment_launches = cuda_segment.SEGMENT_LAUNCHES
 
     main_run = [r for r in records if 3 <= r["it"] <= LOOP_STEPS
                 and not r["sync"]]
@@ -2658,6 +2774,7 @@ def phase_train_loop(dev, scene, scene_s):
         preprocess_backward_launches=prep_launches[1],
         resize_launches=resize_launches[0],
         resize_backward_launches=resize_launches[1],
+        segment_sum_launches=segment_launches,
         loss_first=f"{vals[0]:.6f}", loss_last=f"{vals[-1]:.6f}")
     say("train_loop_sync_sites", per_step=json.dumps(sites).replace(" ", ""))
     say("train_loop_rounds", log=json.dumps(log).replace(" ", ""))
@@ -2670,11 +2787,12 @@ def phase_train_loop(dev, scene, scene_s):
     a_records = run_loop(alpha, 10, dev, mm=True)
     a_vals = [float(r["loss"]) for r in a_records]
     a_bad = [(r["launches"], r["adam_launches"], r["prep_launches"],
-              r["resize_launches"])
+              r["resize_launches"], r["segment_launches"])
              for r in a_records
              if r["launches"] != (1, 1) or r["adam_launches"] != adam_per_step
              or r["prep_launches"] != (1, 1)
-             or r["resize_launches"] != (1, 1)]
+             or r["resize_launches"] != (1, 1)
+             or r["segment_launches"] != 1]
     if (not all(math.isfinite(v) for v in a_vals) or a_bad or launches != (
             cuda_raster.FORWARD_LAUNCHES, cuda_raster.BACKWARD_LAUNCHES)):
         raise AssertionError(f"train_loop alpha_matmul: losses {a_vals}, "
@@ -2691,11 +2809,13 @@ def phase_train_loop(dev, scene, scene_s):
         - prep_launches[0],
         preprocess_backward_launches=cuda_preprocess.PREPROCESS_BWD_LAUNCHES
         - prep_launches[1],
+        segment_sum_launches=cuda_segment.SEGMENT_LAUNCHES - segment_launches,
         loss_first=f"{a_vals[0]:.6f}", loss_last=f"{a_vals[-1]:.6f}",
         exact_loss_first=f"{vals[0]:.6f}")
     return (launches, mm_launches, cuda_adam.ADAM_LAUNCHES,
             tuple(getattr(cuda_preprocess, n) for n in PREP_COUNTERS),
-            tuple(getattr(cuda_resize, n) for n in RESIZE_COUNTERS))
+            tuple(getattr(cuda_resize, n) for n in RESIZE_COUNTERS),
+            cuda_segment.SEGMENT_LAUNCHES)
 
 
 def free_port() -> int:
@@ -3498,7 +3618,8 @@ def main(argv=None) -> int:
     if want("kernel_bwd_small"):
         phase_kernel_bwd_small(dev)
     if want("kernel_bwd_full"):
-        bwd = phase_kernel_bwd_full(dev, params, state, gt_image, gt_feature)
+        bwd, segment_row = phase_kernel_bwd_full(dev, params, state,
+                                                 gt_image, gt_feature)
     at_batch4 = None
     if want("kernel_bwd_slice"):
         at_batch4 = phase_kernel_bwd_slice(dev, params, state, gt_image,
@@ -3543,8 +3664,8 @@ def main(argv=None) -> int:
     if want("kernel_loop"):
         at_loop = phase_kernel_loop(dev, scene)
     if want("train_loop"):
-        loop, loop_mm, loop_adam, loop_prep, loop_resize = phase_train_loop(
-            dev, scene, scene_s)
+        (loop, loop_mm, loop_adam, loop_prep, loop_resize,
+         loop_segment) = phase_train_loop(dev, scene, scene_s)
     parity_cli = phase_parity(dev) if want("parity") else None
     try:
         if want("train_cli") or want("serve_cli"):
@@ -3603,7 +3724,10 @@ def main(argv=None) -> int:
         dict(name="resize_forward", route="cuda", source=src + "resize.cu",
              replaces=None, launches=loop_resize[0], **resize_rows[0]),
         dict(name="resize_backward", route="cuda", source=src + "resize.cu",
-             replaces=None, launches=loop_resize[1], **resize_rows[1])]}))
+             replaces=None, launches=loop_resize[1], **resize_rows[1]),
+        dict(name="segment_sum", route="cuda", source=src + "segment.cu",
+             replaces=tpu + "_cp_bwd (jax.ops.segment_sum)",
+             launches=loop_segment, **segment_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -80,9 +80,10 @@ def spill_spread(d, s, n):
 
 def sorted_fused(d, s, n):
     """The port's own path, ``ops/segment.py``: a stable sort of the ids,
-    then ``segment_reduce`` over the rows in that order (no atomics: the
-    same bits every run), with the plan built inside the call. Eager
-    PyTorch materialises the row gather whatever follows it."""
+    then each group summed in that order (no atomics: the same bits every
+    run), with the plan built inside the call. On the card the sum is one
+    kernel that reads the rows where they lie (``ops/csrc/segment.cu``);
+    elsewhere ``segment_reduce`` over the rows gathered into plan order."""
     return SegmentPlan(s, n).sum(d)
 
 
@@ -110,7 +111,9 @@ VARIANTS = (("plain_at_add", plain_at_add), ("oob_drop", oob_drop),
 def variants(gid: torch.Tensor, n: int) -> list:
     """(name, fn(d, s)) of the script's five and ``segment_plan_sum``:
     ``SegmentPlan.sum`` with the plan of ``gid`` built here, outside the
-    timed call, as the backward builds one plan for all its row arrays."""
+    timed call, as the backward builds one plan for all its row arrays. On
+    the card that is the segment-sum kernel alone (``ops/csrc/segment.cu``,
+    one launch); on the CPU ``segment_reduce(rows[order])``."""
     plan = SegmentPlan(gid, n)
     out = [(name, lambda d, s, fn=fn: fn(d, s, n)) for name, fn in VARIANTS]
     return out + [("segment_plan_sum", lambda d, s: plan.sum(d))]

@@ -1,6 +1,6 @@
 """The kernel libraries under the wrappers that launch them
 (ops/cuda_raster.py, ops/cuda_adam.py, ops/cuda_preprocess.py,
-ops/cuda_resize.py).
+ops/cuda_resize.py, ops/cuda_segment.py).
 
 ``build`` compiles each source of ``SOURCES`` not built yet with ``nvcc``
 for ``sm_90a`` into its own shared library with a plain C interface, one
@@ -30,7 +30,8 @@ SOURCES = {"raster_forward": _CSRC / "raster_forward.cu",
            "raster_backward": _CSRC / "raster_backward.cu",
            "adam": _CSRC / "adam.cu",
            "preprocess": _CSRC / "preprocess.cu",
-           "resize": _CSRC / "resize.cu"}
+           "resize": _CSRC / "resize.cu",
+           "segment": _CSRC / "segment.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -379,14 +379,19 @@ class _Composite(torch.autograd.Function):
         # feature rows fold by Gaussian id into [N,F]; geometric rows by
         # (camera, id) = b * N + id into the [B*N] per-camera inputs
         with tracing.span("raster.segment_sum"):
-            plan = geom_plan = SegmentPlan(gid_sorted, feat.shape[0])
+            plan = SegmentPlan(gid_sorted, feat.shape[0])
             if ctx.where["n_per_camera"]:
-                geom_plan = SegmentPlan(camera_rows(
+                dg = SegmentPlan(camera_rows(
                     gid_sorted, tile_counts, ctx.where["n_per_camera"],
-                    ctx.grid.num_tiles, ctx.where["tile_base"]), xy.shape[0])
-            dg = geom_plan.sum(rows.geom)
-            d_feat = (plan.sum(rows.feature) if ctx.needs_input_grad[5]
-                      else None)
+                    ctx.grid.num_tiles, ctx.where["tile_base"]),
+                    xy.shape[0]).sum(rows.geom)
+                d_feat = (plan.sum(rows.feature) if ctx.needs_input_grad[5]
+                          else None)
+            elif ctx.needs_input_grad[5]:
+                # one plan for both: one kernel launch sums both
+                d_feat, dg = plan.sums(rows.feature, rows.geom)
+            else:
+                dg, d_feat = plan.sum(rows.geom), None
         return (dg[:, 0:2], dg[:, 2:5], dg[:, 5], dg[:, 6:9], dg[:, 9],
                 d_feat, None, None, None, None, None, None, None)
 

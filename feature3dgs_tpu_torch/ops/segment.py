@@ -5,32 +5,54 @@ Port of the ``jax.ops.segment_sum`` in
 write one gradient row per (Gaussian, tile) entry of gid_sorted, and each
 Gaussian's gradient is the sum of its rows. No float atomics (no
 ``index_add_``): a stable sort groups the rows by Gaussian, keeping their
-(tile, depth) order, and ``torch.segment_reduce`` sums each group in that
-order, so the same rows give the same bits. The JAX package's
-``live_row_threshold`` has no counterpart: both versions of the backward
-write every row.
+(tile, depth) order, and each group is summed serially in that order, so
+the same rows give the same bits. On the card one kernel
+(``ops/cuda_segment.py``) reads the rows where they lie; on the CPU
+``torch.segment_reduce`` sums the rows gathered into that order, with the
+same bits. The JAX package's ``live_row_threshold`` has no
+counterpart: both versions of the backward write every row.
 """
 from __future__ import annotations
 
 import torch
 
+from feature3dgs_tpu_torch import tracing
+from feature3dgs_tpu_torch.ops.cuda_segment import segment_sum_cuda
+
 
 class SegmentPlan:
     """The grouping of gid_sorted's entries by Gaussian, shared by every
     row array of one backward: ``order`` [L] (stable sort of the ids) and
-    ``lengths`` [N] (entries per Gaussian). No host sync."""
+    ``bounds`` [N + 1] (where each Gaussian's entries start in ``order``).
+    No host sync."""
 
     def __init__(self, gid_sorted: torch.Tensor, n_gauss: int):
         ids, self.order = torch.sort(gid_sorted.long(), stable=True)
-        bounds = torch.searchsorted(
+        self.bounds = torch.searchsorted(
             ids, torch.arange(n_gauss + 1, device=ids.device))
-        self.lengths = bounds[1:] - bounds[:-1]
 
     def sum(self, rows: torch.Tensor) -> torch.Tensor:
         """[L, C] rows in gid_sorted order -> [N, C] sums per Gaussian
         (zeros for a Gaussian with no entry)."""
-        return torch.segment_reduce(rows[self.order], "sum",
-                                    lengths=self.lengths, unsafe=True)
+        return self.sums(rows)[0]
+
+    def sums(self, rows: torch.Tensor, rider: torch.Tensor = None) -> tuple:
+        """(``sum`` of rows, ``sum`` of rider or None). CUDA arrays take the
+        kernel, which sums a narrow rider in the rows' launch (the geometric
+        rows beside the feature rows of a step); CPU arrays the plain
+        ``segment_reduce``. Counters ``raster.segsum_fused`` and
+        ``raster.segsum_plain`` count the row arrays each path summed."""
+        arrays = 1 if rider is None else 2
+        if rows.device.type == "cuda":
+            tracing.count("raster.segsum_fused", arrays)
+            return segment_sum_cuda(self.order, self.bounds, rows.contiguous(),
+                                    None if rider is None
+                                    else rider.contiguous())
+        tracing.count("raster.segsum_plain", arrays)
+        lengths = self.bounds.diff()
+        return tuple(None if a is None else torch.segment_reduce(
+            a[self.order], "sum", lengths=lengths, unsafe=True)
+            for a in (rows, rider))
 
 
 def camera_rows(gid_sorted: torch.Tensor, tile_counts: torch.Tensor,

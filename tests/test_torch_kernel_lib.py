@@ -11,7 +11,8 @@ import subprocess
 import pytest
 
 from feature3dgs_tpu_torch.ops import (cuda_adam, cuda_preprocess,
-                                       cuda_raster, cuda_resize, kernel_lib)
+                                       cuda_raster, cuda_resize, cuda_segment,
+                                       kernel_lib)
 
 TINY = r"""
 extern "C" {
@@ -26,7 +27,8 @@ TINY_SIGNATURES = {
     "f3dgs_tiny_chunk": ([], ctypes.c_int),
     "f3dgs_tiny_scale": ([ctypes.c_double, ctypes.c_int], ctypes.c_double)}
 
-WRAPPERS = (cuda_raster, cuda_adam, cuda_preprocess, cuda_resize)
+WRAPPERS = (cuda_raster, cuda_adam, cuda_preprocess, cuda_resize,
+            cuda_segment)
 TABLES = [(name, *table) for module in WRAPPERS
           for name, table in module.LIBRARIES.items()]
 

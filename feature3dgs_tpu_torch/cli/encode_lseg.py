@@ -75,18 +75,14 @@ def main(argv=None) -> int:
         img = np.asarray(
             Image.open(os.path.join(args.input, name)).convert("RGB"),
             np.float32) / 255.0
-        hw = (img.shape[0] // args.stride, img.shape[1] // args.stride)
         if use_clip:
+            hw = (img.shape[0] // args.stride, img.shape[1] // args.stride)
             fmap = clip_pixel.encode_image(
                 (img * 255).astype(np.uint8), hw, device=dev
-            ).to(torch.float16)
+            ).to(torch.float16).contiguous().cpu()
         else:
-            fmap = lseg_net.encode_image(img, net, scales=tuple(args.scales))
-            if args.stride > 1:
-                fmap = torch.nn.functional.interpolate(
-                    fmap.float()[None], size=hw, mode="bilinear",
-                    align_corners=False)[0].to(torch.float16)
-        fmap = fmap.contiguous().cpu()
+            fmap = lseg_net.export_features(img, net, tuple(args.scales),
+                                            args.stride)
         base = os.path.join(args.outdir, stem + "_fmap_CxHxW")
         torch.save(fmap, base + ".pt")
         np.save(base + ".npy", fmap.numpy())

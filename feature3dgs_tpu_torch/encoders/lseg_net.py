@@ -14,6 +14,22 @@ Parameter names are the reference's (``expected_state_dict_keys``), so a
 checkpoint or the JAX package's state dict loads strictly. The network is
 built on the device (``build_lseg(device=..., generator=...)``: a CPU
 init of 300 M parameters costs seconds) and runs in float32.
+
+``export_features`` is the feature export's chain for one image, as
+``cli/encode_lseg.py`` runs it: ``encode_features``, the fp16 cast, the
+``--stride`` resize and the copy to the host.
+
+Spans (``tracing.py``): ``lseg.encode`` holds ``lseg.preprocess`` (the
+upload, the normalisation and each scale's resize), one ``lseg.block`` a
+trunk block, ``lseg.reassemble`` (the readouts, 1x1 convolutions and
+resamples), ``lseg.fusion`` (the ``layer*_rn`` convolutions and the four
+RefineNets) and ``lseg.head`` (``head1`` and the final upsample in the
+network; the resize back to the image and the average over the scales);
+the patch embedding runs in ``lseg.encode``'s own time. ``lseg.export`` is
+the export's cast, resize and copy. Counters: ``lseg.images``,
+``lseg.tokens`` (a forward's tokens, the cls token included) and
+``host_wait.lseg_upload`` / ``host_wait.lseg_export``, the two places the
+host waits on the card.
 """
 from __future__ import annotations
 
@@ -23,7 +39,7 @@ import os
 import numpy as np
 import torch
 
-from feature3dgs_tpu_torch import default_device
+from feature3dgs_tpu_torch import default_device, tracing
 
 VIT_DIM = 1024
 VIT_DEPTH = 24
@@ -132,9 +148,11 @@ def _modules(VIT_DIM=VIT_DIM, VIT_DEPTH=VIT_DEPTH, VIT_HEADS=VIT_HEADS,
             x = self.patch_embed.proj(x).flatten(2).transpose(1, 2)
             cls = self.cls_token.expand(b, -1, -1)
             x = torch.cat((cls, x), dim=1) + pos
+            tracing.count("lseg.tokens", x.shape[1])
             acts = {}
             for i, blk in enumerate(self.blocks):
-                x = blk(x)
+                with tracing.span("lseg.block"):
+                    x = blk(x)
                 if i in hooks:
                     acts[i] = x
             return [acts[i] for i in hooks]
@@ -224,11 +242,12 @@ def _modules(VIT_DIM=VIT_DIM, VIT_DEPTH=VIT_DEPTH, VIT_HEADS=VIT_HEADS,
             posts = [self.act_postprocess1, self.act_postprocess2,
                      self.act_postprocess3, self.act_postprocess4]
             outs = []
-            for layer, post in zip(layers, posts):
-                t = post[0:2](layer)              # readout + transpose
-                t = t.unflatten(2, (h // PATCH, w // PATCH))
-                t = post[3:](t)                   # conv (+ resample)
-                outs.append(t)
+            with tracing.span("lseg.reassemble"):
+                for layer, post in zip(layers, posts):
+                    t = post[0:2](layer)          # readout + transpose
+                    t = t.unflatten(2, (h // PATCH, w // PATCH))
+                    t = post[3:](t)               # conv (+ resample)
+                    outs.append(t)
             return outs
 
     class Scratch(nn.Module):
@@ -258,20 +277,28 @@ def _modules(VIT_DIM=VIT_DIM, VIT_DEPTH=VIT_DEPTH, VIT_HEADS=VIT_HEADS,
             # tensor, so it is NOT in checkpoints; constant by design
             self.register_buffer("logit_scale",
                                  torch.tensor(1.0 / 0.07), persistent=False)
+            # the input normalisation's constants, made once on the net's
+            # device (a tensor made from a list each call is an upload)
+            self.register_buffer("norm_mean", torch.tensor(NORM_MEAN).view(
+                1, 3, 1, 1), persistent=False)
+            self.register_buffer("norm_std", torch.tensor(NORM_STD).view(
+                1, 3, 1, 1), persistent=False)
 
         def forward(self, x):
             l1, l2, l3, l4 = self.pretrained(x)
             s = self.scratch
-            l1, l2 = s.layer1_rn(l1), s.layer2_rn(l2)
-            l3, l4 = s.layer3_rn(l3), s.layer4_rn(l4)
-            p4 = s.refinenet4(l4)
-            p3 = s.refinenet3(p4, l3)
-            p2 = s.refinenet2(p3, l2)
-            p1 = s.refinenet1(p2, l1)
-            feat = s.head1(p1)
-            # scratch.output_conv == Interpolate(x2, bilinear, corners)
-            return F.interpolate(feat, scale_factor=2, mode="bilinear",
-                                 align_corners=True)
+            with tracing.span("lseg.fusion"):
+                l1, l2 = s.layer1_rn(l1), s.layer2_rn(l2)
+                l3, l4 = s.layer3_rn(l3), s.layer4_rn(l4)
+                p4 = s.refinenet4(l4)
+                p3 = s.refinenet3(p4, l3)
+                p2 = s.refinenet2(p3, l2)
+                p1 = s.refinenet1(p2, l1)
+            with tracing.span("lseg.head"):
+                feat = s.head1(p1)
+                # scratch.output_conv == Interpolate(x2, bilinear, corners)
+                return F.interpolate(feat, scale_factor=2, mode="bilinear",
+                                     align_corners=True)
 
     return LSegNet
 
@@ -329,24 +356,29 @@ def encode_features(img_hw3, net, scales=(1.0,), base: int = 32
     480-crops, as in the JAX package)."""
     import torch.nn.functional as F
     dev = next(net.parameters()).device
-    x = torch.as_tensor(np.asarray(img_hw3) if not isinstance(
-        img_hw3, torch.Tensor) else img_hw3).to(dev, torch.float32)
-    h, w = x.shape[:2]
-    x = x.permute(2, 0, 1)[None]
-    mean = torch.tensor(NORM_MEAN, device=dev)[None, :, None, None]
-    std = torch.tensor(NORM_STD, device=dev)[None, :, None, None]
-    x = (x - mean) / std
-    acc = None
-    for s in scales:
-        hs = max(base, int(round(h * s / base)) * base)
-        ws = max(base, int(round(w * s / base)) * base)
-        xs = F.interpolate(x, size=(hs, ws), mode="bilinear",
-                           align_corners=False)
-        f = net(xs)
-        f = F.interpolate(f, size=(h, w), mode="bilinear",
-                          align_corners=False)
-        acc = f if acc is None else acc + f
-    return (acc / len(scales))[0]
+    with tracing.span("lseg.encode"):
+        tracing.count("lseg.images")
+        with tracing.span("lseg.preprocess"):
+            x = torch.as_tensor(np.asarray(img_hw3) if not isinstance(
+                img_hw3, torch.Tensor) else img_hw3)
+            tracing.count("host_wait.lseg_upload")
+            x = x.to(dev, torch.float32)
+            h, w = x.shape[:2]
+            x = (x.permute(2, 0, 1)[None] - net.norm_mean) / net.norm_std
+        acc = None
+        for s in scales:
+            with tracing.span("lseg.preprocess"):
+                hs = max(base, int(round(h * s / base)) * base)
+                ws = max(base, int(round(w * s / base)) * base)
+                xs = F.interpolate(x, size=(hs, ws), mode="bilinear",
+                                   align_corners=False)
+            f = net(xs)
+            with tracing.span("lseg.head"):
+                f = F.interpolate(f, size=(h, w), mode="bilinear",
+                                  align_corners=False)
+                acc = f if acc is None else acc + f
+        with tracing.span("lseg.head"):
+            return (acc / len(scales))[0]
 
 
 def encode_image(img_hw3, net=None, scales=(1.0,), base: int = 32,
@@ -360,6 +392,25 @@ def encode_image(img_hw3, net=None, scales=(1.0,), base: int = 32,
         if net is None:
             raise RuntimeError("no LSeg weights: set LSEG_WEIGHTS")
     return encode_features(img_hw3, net, scales, base).to(torch.float16)
+
+
+def export_features(img_hw3, net, scales=(1.0,), stride: int = 1
+                    ) -> torch.Tensor:
+    """One image's teacher map as the export saves it, on the host:
+    ``encode_image``'s fp16 map; with ``stride`` > 1 that map resized in
+    float32 to (H // stride, W // stride) (bilinear, no aligned corners)
+    and cast to fp16 again; contiguous. The copy waits on the card."""
+    import torch.nn.functional as F
+    fmap = encode_features(img_hw3, net, scales)
+    with tracing.span("lseg.export"):
+        fmap = fmap.to(torch.float16)
+        if stride > 1:
+            hw = (fmap.shape[1] // stride, fmap.shape[2] // stride)
+            fmap = F.interpolate(fmap.float()[None], size=hw,
+                                 mode="bilinear", align_corners=False
+                                 )[0].to(torch.float16)
+        tracing.count("host_wait.lseg_export")
+        return fmap.contiguous().cpu()
 
 
 def expected_state_dict_keys() -> list[str]:
